@@ -1,0 +1,45 @@
+"""Carry the reference's packed parameters across to the port.
+
+`from_reference` takes numpy arrays in the JAX package's packing —
+``np.asarray(repro.core.sim.profile_values(p))`` rows, ``np.asarray(
+repro.core.plane.gains_values(g))`` rows, and optionally a (T, 5, B)
+noise array from the reference's ``draw_noise`` — and returns the
+port's tensors, so both packages compute from identical inputs. It
+imports nothing of the reference: it only reads numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    # the reference's bf16 rows arrive as ml_dtypes.bfloat16: widen to
+    # float32 (exact) and narrow again in torch, keeping the dtype bucket
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    # a copy: the reference's arrays may be read-only views
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def from_reference(prof_vals, gains_vals, noise=None,
+                   device: Union[None, str, torch.device] = None
+                   ) -> Union[Tuple[torch.Tensor, torch.Tensor],
+                              Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]]:
+    """(B, 14) profile rows, (B, 9) gain rows [, (T, 5, B) noise] as
+    numpy arrays of the reference's packing -> the same as tensors on
+    ``device`` (CUDA unless told otherwise). Float32 rows stay float32;
+    bfloat16 rows stay bfloat16; noise is float32."""
+    dev = resolve_device(device)
+    prof = _tensor(prof_vals, dev)
+    gains = _tensor(gains_vals, dev)
+    if noise is None:
+        return prof, gains
+    return prof, gains, _tensor(noise, dev).to(torch.float32)
