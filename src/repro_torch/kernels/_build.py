@@ -58,7 +58,7 @@ def build(source: Path) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent builder never
+    # compile to a private name, then rename: a concurrent process never
     # sees a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
