@@ -9,15 +9,17 @@ Phases, each of which fails the run if a check fails:
 1. set-up: the card, the torch/CUDA versions and the kernel build from
    the sources in this checkout (timed);
 2. every kernel against its plain PyTorch version on the card, on the
-   same inputs, in trace and summary mode, at the reference kernel
-   test's five case shapes and one 4,096-run x 2,048-step grid;
+   same inputs, in trace and summary mode, at the shapes of
+   `parity.CARD_CASES` and one 4,096-run x 2,048-step grid;
 3. the main path at real size: `sweep` over gros/dahu/yeti x 11
    epsilons x 3,072 seeds (101,376 runs, 2,048 steps) in summary mode,
    with the kernel's launch count read around it and physical checks;
 4. the paper's headline (eps = 0.1 on gros) through a trace-mode `sweep`
    and `simulate_closed_loop`;
-5. timings with CUDA events (warm-up, median of 7): the kernel beside
-   its bound, the plain version, the noise draw.
+5. the kernel against its plain version on the main path's own inputs
+   (101,376 runs, summary mode), the kernel's output against phase 3's
+   sweep, and timings with CUDA events (warm-up, median of 5 or 7): the
+   kernel beside its bound, the plain version, the noise draw.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -35,15 +37,23 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor)
-# flop/s, for the least time the card could take.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32 rate
+# outside the tensor cores (67 TFLOP/s counts an FMA as two flops). The
+# kernel is built with -fmad=false and its exp, log, sqrt and divisions
+# are instruction sequences, so its operations are counted as the SASS
+# instructions of its time loop (`repro_torch.kernels.sass`), against
+# the issue rate: 4 x 32 thread-instructions per SM per clock, the fp32
+# rate with an FMA counted once.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-# closed-loop kernel work per live run-step: 5 float32 noise reads; about
-# 60 flops and 3 transcendentals (exp, log, sqrt), counted as 63 ops
+ISSUE_PER_S = 67e12 / 2
+# closed-loop kernel bytes per live run-step: 5 float32 noise reads,
+# and 7 float32 trace writes in trace mode
 NOISE_BYTES_PER_STEP = 5 * 4
 TRACE_BYTES_PER_STEP = 7 * 4
-OPS_PER_STEP = 63
+# the float32 instantiations of the kernel (the main path's rows), in
+# summary and trace mode
+SUMMARY_KERNEL = "closed_loop_kernelIfLb0E"
+TRACE_KERNEL = "closed_loop_kernelIfLb1E"
 
 EPS_GRID = [round(0.05 * i, 2) for i in range(11)]
 
@@ -93,11 +103,12 @@ def main() -> int:
     from repro_torch.core import sim
     from repro_torch.core.energy import summarize_run, tradeoff_table
     from repro_torch.core.plant import PROFILES
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, sass
     from repro_torch.kernels.closed_loop import kernel as K
     from repro_torch.kernels.closed_loop import ops
     from repro_torch.kernels.closed_loop import ref as R
-    from repro_torch.kernels.closed_loop.parity import check_parity
+    from repro_torch.kernels.closed_loop.parity import (
+        CARD_CASES, CARD_SUMMARY_FROM, check_parity)
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -112,6 +123,12 @@ def main() -> int:
     lib = _build.build(K.SOURCE)
     print(f"[setup] built {lib.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    loop_instr = {mode: sass.kernel_loop_instructions(lib, part)
+                  for mode, part in (("summary", SUMMARY_KERNEL),
+                                     ("trace", TRACE_KERNEL))}
+    print(f"[setup] SASS instructions per live step on the shortest pass "
+          f"of the time loop: summary {loop_instr['summary']}, trace "
+          f"{loop_instr['trace']}")
 
     # count the plain version's calls too: the main path must make none
     plain_calls = [0]
@@ -127,16 +144,9 @@ def main() -> int:
     def rows(names, reps, eps=0.1):
         return sim.grid_rows(list(names) * reps, [eps], [0])[:2]
 
-    cases = [  # (profiles, reps, max_time, total_work) of the reference's
-        (("gros", "dahu"), 4, 96.0, 1e9),         # kernel test CASES
-        (("yeti",), 16, 64.0, 1e9),
-        (("v5e-chip",), 4, 64.0, 1e9),
-        (("gros",), 8, 48.0, 150.0),
-        (("gros", "dahu", "yeti"), 2, 64.0, 1e9),
-    ]
     max_err = 0.0
     t0 = time.perf_counter()
-    for i, (names, reps, mt, tw) in enumerate(cases):
+    for i, (names, reps, mt, tw) in enumerate(CARD_CASES):
         prof, gains = rows(names, reps)
         for dtype in (torch.float32, torch.bfloat16):
             p = prof.to(dev, dtype)
@@ -145,7 +155,7 @@ def main() -> int:
             T = ops.horizon(mt, 1.0)
             noise = ops.draw_noise(torch.arange(B, device=dev) + 1000 * i,
                                    T)
-            sc = (tw, mt, 1.0, 0.0)
+            sc = (tw, mt, 1.0, CARD_SUMMARY_FROM)
             plain = R.closed_loop_ref(p, g, noise, *sc, collect=True)
             tk, blk = K.closed_loop_cuda(p, g, noise, sc, collect=True)
             _, blk_s = K.closed_loop_cuda(p, g, noise, sc, collect=False)
@@ -220,6 +230,8 @@ def main() -> int:
               + " ".join(f"{pm[ei] / ((1 - e) * pmax):.4f}"
                          for ei, e in enumerate(EPS_GRID) if e >= 0.1)
               + f"; energy eps=0 {em[0]:.6g} J -> eps=0.5 {em[-1]:.6g} J")
+    main_out = {"energy": res.energy, "work": res.work,
+                "t": res.exec_time, "steps": res.n_steps}
     del res
 
     # ---- 4. the paper's headline through sweep and simulate ----------
@@ -250,29 +262,45 @@ def main() -> int:
           f"{table[0.1]['time_increase']:.4f} (30 seeds, total_work 6000); "
           f"kernel launches {K.LAUNCHES}")
 
-    # ---- 5. timings --------------------------------------------------
+    # ---- 5. the main path's own inputs: parity, then timings --------
     prof, gains, seeds = sim.grid_rows(*main_grid)
     prof, gains, seeds = prof.to(dev), gains.to(dev), seeds.to(dev)
     draw_ms = cuda_ms(lambda: ops.draw_noise(seeds, 2048), reps=5)
     noise = ops.draw_noise(seeds, 2048)
     main_sc = (1e9, 2048.0, 1.0, 30.0)
+    _, blk = K.closed_loop_cuda(prof, gains, noise, main_sc, collect=False)
+    fk = K.unpack_final(*blk)
+    for k, v in main_out.items():  # the sweep ran this very launch
+        check(np.array_equal(fk[k].cpu().numpy().astype(v.dtype),
+                             v.reshape(-1)), f"main path {k} != sweep's")
+    t0 = time.perf_counter()
+    plain = R.closed_loop_ref(prof, gains, noise, *main_sc, collect=False)
+    err = check_parity(None, fk, None, plain[1],
+                       tag=f"main path B={n_runs} T=2048 summary")
+    max_err = max(max_err, err)
+    print(f"[parity] main path B={n_runs} T=2048 summary: max |kernel - "
+          f"plain| = {err:.3e}; phase 3's sweep equals this launch "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del plain, fk, blk
     kern_ms = cuda_ms(lambda: K.closed_loop_cuda(prof, gains, noise,
                                                  main_sc, collect=False))
+    # the parity run above was the plain version's warm-up
     plain_ms = cuda_ms(lambda: R.closed_loop_ref(prof, gains, noise,
                                                  *main_sc, collect=False),
-                       reps=5, warmup=1)
+                       reps=5, warmup=0)
     in_bytes = (prof.numel() + gains.numel()) * 4
     out_bytes = (K.N_STATE + R.PROG_BINS + R.CAP_BINS) * n_runs * 4
     bytes_main = live_steps * NOISE_BYTES_PER_STEP + in_bytes + out_bytes
     bytes_ms = bytes_main / HBM_BYTES_PER_S * 1e3
-    ops_ms = live_steps * OPS_PER_STEP / FP32_FLOP_PER_S * 1e3
+    ops_ms = live_steps * loop_instr["summary"] / ISSUE_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"[time] closed_loop kernel, main path ({n_runs} runs x 2048, "
           f"summary): {kern_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({bytes_main / 1e9:.4f} GB; ops bound "
-          f"{ops_ms:.4f} ms); {bytes_main / kern_ms / 1e6:.1f} GB/s = "
-          f"{100 * bound_ms / kern_ms:.1f}% of the bound")
+          f"{bound_by} (bytes {bytes_main / 1e9:.4f} GB -> {bytes_ms:.4f} "
+          f"ms; {loop_instr['summary']} instructions x {live_steps} "
+          f"run-steps -> {ops_ms:.4f} ms); {bytes_main / kern_ms / 1e6:.1f}"
+          f" GB/s; {100 * bound_ms / kern_ms:.1f}% of the bound")
     print(f"[time] plain version, same inputs: {plain_ms:.2f} ms "
           f"({plain_ms / kern_ms:.1f}x the kernel)")
     print(f"[time] draw_noise (T=2048, B={n_runs}): {draw_ms:.3f} ms; "
@@ -284,10 +312,13 @@ def main() -> int:
                                                big_noise, big_sc,
                                                collect=True))
     tr_steps = big_prof.shape[0] * 2048
-    tr_bound = tr_steps * (NOISE_BYTES_PER_STEP + TRACE_BYTES_PER_STEP) \
+    tr_bytes_ms = tr_steps * (NOISE_BYTES_PER_STEP + TRACE_BYTES_PER_STEP) \
         / HBM_BYTES_PER_S * 1e3
+    tr_ops_ms = tr_steps * loop_instr["trace"] / ISSUE_PER_S * 1e3
     print(f"[time] closed_loop kernel, trace mode ({big_prof.shape[0]} "
-          f"runs x 2048): {tr_ms:.4f} ms; bound {tr_bound:.4f} ms by bytes")
+          f"runs x 2048): {tr_ms:.4f} ms; bound "
+          f"{max(tr_bytes_ms, tr_ops_ms):.4f} ms (bytes {tr_bytes_ms:.4f} "
+          f"ms, instructions {tr_ops_ms:.4f} ms)")
     print("[time] library yardstick: none (no single PyTorch call "
           "computes this closed loop)")
 

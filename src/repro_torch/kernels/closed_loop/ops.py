@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels.closed_loop import ref as R
 from repro_torch.kernels.closed_loop.kernel import (closed_loop_cuda,
                                                     unpack_final)
@@ -78,14 +79,16 @@ def draw_noise(seeds: Union[Sequence[int], torch.Tensor], T: int,
                device: Union[str, torch.device, None] = None
                ) -> torch.Tensor:
     """Per-run noise streams: seeds (B,) -> (T, 5, B) float32 on
-    ``device`` (default: the seeds' device).
+    ``device`` (default: the seeds' device if they are a tensor, else
+    CUDA, raising without one, as the entry points do).
 
     Channels (`ref.NZ_*`): progress-noise z, power-noise z, drop-enter
     u, drop-exit u, heartbeat z. Uniforms lie in [0, 1); normals come
     from two uniforms by Box-Muller. Generated channel by channel in time
     chunks, so the int64 scratch stays small beside the output."""
     if device is None:
-        device = seeds.device if isinstance(seeds, torch.Tensor) else "cpu"
+        device = (seeds.device if isinstance(seeds, torch.Tensor)
+                  else resolve_device(None))
     seeds = torch.as_tensor(seeds, dtype=torch.int64, device=device)
     if seeds.dim() != 1:
         raise ValueError(f"seeds must be (B,), got {tuple(seeds.shape)}")

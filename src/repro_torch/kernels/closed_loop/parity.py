@@ -24,6 +24,22 @@ PCAP_ATOL = 1e-2          # watts
 PROGRESS_EQUAL_SHARE = 0.999
 MAX_MOVED = 2             # histogram counts per run
 
+# Shapes at which the kernel is held against its plain version on the
+# card (chip_smoke.py and tests/test_torch_cuda.py), each in trace and
+# summary mode: (profiles, repeats of them, max_time, total_work). The
+# first five are the reference kernel test's CASES; the last is a ragged
+# batch of 280 runs (not a multiple of the kernel's 64-run block) in
+# which some runs finish early.
+CARD_CASES = (
+    (("gros", "dahu"), 4, 96.0, 1e9),
+    (("yeti",), 16, 64.0, 1e9),
+    (("v5e-chip",), 4, 64.0, 1e9),
+    (("gros",), 8, 48.0, 150.0),
+    (("gros", "dahu", "yeti"), 2, 64.0, 1e9),
+    (("gros", "dahu", "yeti", "v5e-host"), 70, 200.0, 3000.0),
+)
+CARD_SUMMARY_FROM = 5.0   # steps before the summaries start
+
 
 def _np(x) -> np.ndarray:
     if hasattr(x, "detach"):  # a torch tensor, on any device

@@ -1,0 +1,103 @@
+"""Instruction counts from a built CUDA library's machine code (SASS), for
+the least time a kernel's time loop could take.
+
+`loop_instructions` finds a kernel's main loop in ``cuobjdump -sass``
+output (the backward branch that spans the most code) and counts the
+instructions on the shortest path through one pass of it, from the loop
+head to that backward branch, where every forward branch may be taken
+or not. Slow paths that a pass can skip (the fix-ups of IEEE division
+and square root, called out of line) are therefore not counted, nor is
+anything a call executes.
+
+A Hopper SM issues one warp instruction per scheduler per clock, 4 x 32
+thread-instructions per clock: the same as its float32 lanes, so the
+card's issue rate is its float32 rate with an FMA counted as one. The
+count per live step over that rate is a floor on a loop's time that
+counts what the compiled code does, not what the source appears to do.
+"""
+from __future__ import annotations
+
+import math
+import re
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+from repro_torch.kernels import _build
+
+_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_BRANCH = re.compile(r"^(@!?U?P[T0-9]+\s+)?BRA(?:\.\w+)*\s+"
+                     r"(!?U?P[T0-9]+\s*,\s*)?0x([0-9a-f]+)")
+
+Instrs = List[Tuple[int, str]]
+
+
+def functions(sass: str) -> Dict[str, Instrs]:
+    """``cuobjdump -sass`` text -> {mangled kernel name: [(address,
+    instruction text)]}."""
+    out: Dict[str, Instrs] = {}
+    current = None
+    for line in sass.splitlines():
+        head = _FUNCTION.search(line)
+        if head:
+            current = out.setdefault(head.group(1), [])
+            continue
+        m = _INSTR.search(line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def _branch(text: str):
+    """(target, conditional) of a BRA instruction, else None."""
+    m = _BRANCH.match(text)
+    if m is None:
+        return None
+    return int(m.group(3), 16), bool(m.group(1) or m.group(2))
+
+
+def loop_instructions(instrs: Instrs) -> int:
+    """Fewest instructions one pass of the widest loop in ``instrs`` can
+    issue per thread (the backward branch that closes it included)."""
+    loops = [(addr, b[0]) for addr, text in instrs
+             if (b := _branch(text)) and b[0] < addr]
+    if not loops:
+        raise ValueError("no loop (backward branch) in this function")
+    tail, head = max(loops, key=lambda lt: lt[0] - lt[1])
+    body = [(a, t) for a, t in instrs if head <= a <= tail]
+    index = {a: i for i, (a, _) in enumerate(body)}
+    cost = [math.inf] * len(body)
+    cost[-1] = 1
+    for i in range(len(body) - 2, -1, -1):
+        addr, text = body[i]
+        b = _branch(text)
+        nexts = [i + 1] if b is None or b[1] else []
+        if b is not None and addr < b[0] <= tail:
+            nexts.append(index[b[0]])
+        cost[i] = 1 + min((cost[j] for j in nexts), default=math.inf)
+    if math.isinf(cost[0]):
+        raise ValueError("no pass of the loop reaches its backward branch")
+    return int(cost[0])
+
+
+def library_sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library (cuobjdump beside nvcc)."""
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}) on "
+                           f"{lib.name}:\n{proc.stderr}")
+    return proc.stdout
+
+
+def kernel_loop_instructions(lib: Path, name_part: str) -> int:
+    """`loop_instructions` of the one kernel in ``lib`` whose mangled name
+    contains ``name_part``."""
+    funcs = {k: v for k, v in functions(library_sass(lib)).items()
+             if name_part in k}
+    if len(funcs) != 1:
+        raise ValueError(f"{len(funcs)} kernels in {lib.name} match "
+                         f"{name_part!r}")
+    return loop_instructions(next(iter(funcs.values())))

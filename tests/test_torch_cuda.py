@@ -20,7 +20,7 @@ from repro_torch.core import sim  # noqa: E402
 from repro_torch.kernels.closed_loop import kernel as K  # noqa: E402
 from repro_torch.kernels.closed_loop import ops  # noqa: E402
 from repro_torch.kernels.closed_loop import ref as R  # noqa: E402
-from repro_torch.kernels.closed_loop.parity import check_parity  # noqa: E402
+from repro_torch.kernels.closed_loop import parity as P  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -32,19 +32,10 @@ def dev():
     return torch.device("cuda")
 
 
-# (profiles, reps, max_time, total_work, collect)
-CASES = [
-    (("gros", "dahu"), 4, 96.0, 1e9, True),
-    (("yeti",), 16, 64.0, 1e9, True),
-    (("v5e-chip",), 4, 64.0, 1e9, False),
-    (("gros",), 8, 48.0, 150.0, True),
-    (("gros", "dahu", "yeti"), 2, 64.0, 1e9, False),
-    (("gros", "dahu", "yeti", "v5e-host"), 70, 200.0, 3000.0, True),
-]
-
-
+@pytest.mark.parametrize("collect", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("profiles,reps,max_time,total_work,collect", CASES)
+@pytest.mark.parametrize("profiles,reps,max_time,total_work",
+                         P.CARD_CASES)
 def test_kernel_matches_plain_version(dev, profiles, reps, max_time,
                                       total_work, collect, dtype):
     prof, gains, _ = sim.grid_rows(list(profiles) * reps, [0.1], [0])
@@ -53,13 +44,13 @@ def test_kernel_matches_plain_version(dev, profiles, reps, max_time,
     B = prof.shape[0]
     noise = ops.draw_noise(torch.arange(B, device=dev), ops.horizon(
         max_time, 1.0))
-    sc = (total_work, max_time, 1.0, 5.0)
+    sc = (total_work, max_time, 1.0, P.CARD_SUMMARY_FROM)
     before = K.LAUNCHES
     tk, blocks = K.closed_loop_cuda(prof, gains, noise, sc, collect)
     assert K.LAUNCHES == before + 1
     torch.cuda.synchronize()
     tp, fp = R.closed_loop_ref(prof, gains, noise, *sc, collect=collect)
-    check_parity(tk, K.unpack_final(*blocks), tp, fp)
+    P.check_parity(tk, K.unpack_final(*blocks), tp, fp)
 
 
 def test_summary_mode_equals_trace_mode(dev):

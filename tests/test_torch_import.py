@@ -51,6 +51,9 @@ def test_entry_points_refuse_to_run_without_cuda():
         pytest.skip("a CUDA device is present: the default is valid")
     from repro_torch import resolve_device
     from repro_torch.core import sim
+    from repro_torch.kernels.closed_loop import ops
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.draw_noise([1, 2], 64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim.sweep("gros", [0.1], [0], total_work=10.0, max_time=64.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,0 +1,77 @@
+"""The SASS loop counter behind chip_smoke.py's operation bound, on
+hand-written listings in ``cuobjdump -sass`` form: the shortest pass
+through the widest loop, forward branches taken or not, slow-path calls
+skipped."""
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.kernels import sass  # noqa: E402
+
+
+def listing(*rows, name="_Z6kernelPf"):
+    lines = [f"\t\tFunction : {name}"]
+    for i, text in enumerate(rows):
+        lines.append(f"        /*{16 * i:04x}*/  {text} ;"
+                     f"   /* 0x{0:016x} */")
+    return "\n".join(lines)
+
+
+# 0: set-up; 1..9: the loop (head at 0x0010, backward branch at 0x0090).
+# The division fix-up at 3..5 can be skipped by the branch at 2, and the
+# if/else at 6..8 costs 2 one way (6, 7 -> 9) or 2 the other (6 -> 8).
+LOOP = listing(
+    "MOV R0, RZ",                        # 0x00
+    "LDG.E R1, desc[UR4][R2.64]",        # 0x10 loop head
+    "@!P0 BRA 0x60",                     # 0x20 skip the slow path
+    "MOV R4, R1",                        # 0x30
+    "CALL.REL.NOINC 0x200",              # 0x40
+    "MOV R1, R4",                        # 0x50
+    "@P1 BRA 0x80",                      # 0x60
+    "BRA 0x90",                          # 0x70
+    "FADD R1, R1, 1",                    # 0x80
+    "@!P2 BRA P3, 0x10",                 # 0x90 backward branch
+    "EXIT",                              # 0xa0
+)
+
+
+def test_functions_split_a_listing_by_kernel():
+    text = LOOP + "\n" + listing("EXIT", name="_Z5otherv")
+    funcs = sass.functions(text)
+    assert sorted(funcs) == ["_Z5otherv", "_Z6kernelPf"]
+    assert funcs["_Z6kernelPf"][2] == (0x20, "@!P0 BRA 0x60")
+    assert len(funcs["_Z6kernelPf"]) == 11
+
+
+@pytest.mark.parametrize("text,expected", [
+    # head, skip branch, if, BRA, backward branch: 5 (the slow path and
+    # the FADD arm are longer)
+    (LOOP, 5),
+    # with no way round the slow path, every row of the body counts
+    (LOOP.replace("@!P0 BRA 0x60", "NOP").replace("@P1 BRA 0x80", "NOP"),
+     8),
+    # a branch out of the loop (a break) is not a pass: fall through it
+    (LOOP.replace("@!P0 BRA 0x60", "@P4 BRA 0xa0"), 8),
+])
+def test_loop_instructions_count_the_shortest_pass(text, expected):
+    (instrs,) = sass.functions(text).values()
+    assert sass.loop_instructions(instrs) == expected
+
+
+def test_the_widest_loop_is_the_main_one():
+    inner = listing(
+        "MOV R0, RZ",              # 0x00
+        "FADD R0, R0, 1",          # 0x10 outer head
+        "IADD3 R1, R1, 1, RZ",     # 0x20 inner head
+        "@P0 BRA 0x20",            # 0x30 inner backward branch
+        "FMUL R0, R0, 2",          # 0x40
+        "@P1 BRA 0x10",            # 0x50 outer backward branch
+    )
+    (instrs,) = sass.functions(inner).values()
+    assert sass.loop_instructions(instrs) == 5
+
+
+def test_a_function_without_a_loop_is_refused():
+    (instrs,) = sass.functions(listing("MOV R0, RZ", "EXIT")).values()
+    with pytest.raises(ValueError, match="no loop"):
+        sass.loop_instructions(instrs)
