@@ -19,7 +19,21 @@ Phases, each of which fails the run if a check fails:
 5. the kernel against its plain version on the main path's own inputs
    (101,376 runs, summary mode), the kernel's output against phase 3's
    sweep, and timings with CUDA events (warm-up, median of 5 or 7): the
-   kernel beside its bound, the plain version, the noise draw.
+   kernel beside its bound, the plain version, the noise draw;
+6. the flash-attention and split-KV decode kernels against their plain
+   versions on the card (`attention_cases`: the reference tests' shapes,
+   head_dim 120, ragged lengths, narrow windows, the serving shapes);
+7. the LM serving path at full width: `repro_torch.launch.serve.main`
+   on qwen3-8b (36 layers, d_model 4096, vocab 151,936, bf16, random
+   weights from seed 0), batch 8, 1,024-token prompts, 32 tokens,
+   with the attention kernels' launch counts read around it; then the
+   same weights' prefill and teacher-forced decode logits through the
+   kernels against the plain attention path, and prefill + decode
+   against `forward` at full width with 2 layers;
+8. timings with CUDA events: prefill and one decode step at full width,
+   and each attention kernel at its serving shape beside its bound, its
+   plain version and `scaled_dot_product_attention` (the library
+   yardstick; the port never calls it).
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -27,6 +41,7 @@ without a CUDA device or without the port's sources beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -56,6 +71,22 @@ SUMMARY_KERNEL = "closed_loop_kernelIfLb0E"
 TRACE_KERNEL = "closed_loop_kernelIfLb1E"
 
 EPS_GRID = [round(0.05 * i, 2) for i in range(11)]
+
+# H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet); the attention
+# kernels' inputs are bf16 on the serving path, so their operation bound
+# is taken at this rate. FP32_PER_S is the rate of the float32 FMA path
+# these first kernels use instead of the tensor cores.
+BF16_PER_S = 989e12
+FP32_PER_S = 67e12
+# the serving run of phase 7: qwen3-8b at full width and depth, nothing cut
+SERVE_ARGV = ["--arch", "qwen3-8b", "--batch", "8", "--prompt-len", "1024",
+              "--gen", "32", "--seed", "0", "--quiet"]
+# bf16 logits of the kernel path against the plain path: relative L2
+# error. bf16 keeps 8 bits (unit roundoff 3.9e-3); 36 layers of
+# independent roundings in the residual stream add up to ~6x that, and
+# the kernels keep probabilities in float32 where the plain path rounds
+# them to bf16.
+LOGITS_REL_TOL = 0.05
 
 
 def check(cond, msg):
@@ -90,6 +121,416 @@ def cuda_ms(fn, reps=7, warmup=2):
     return float(np.median(times))
 
 
+def rel_err(a, b) -> float:
+    """Relative L2 error of ``a`` against ``b``, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def attention_parity(dev) -> dict:
+    """Phase 6: both attention kernels against their plain versions on
+    the card, at `attention_cases`' shapes; returns the largest
+    |kernel - plain| of each."""
+    import torch
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    t0 = time.perf_counter()
+    for case in AC.FLASH_CASES + [AC.FLASH_SERVE]:
+        causal, window, dtype = case[5:]
+        q, k, v = AC.flash_inputs(case, dev)
+        got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = FR.attention_ref(q, k, v, causal=causal, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(),
+                             **AC.tolerance(dtype)),
+              f"flash {case}: max |kernel - plain| = {err}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        print(f"[parity] flash_attention {case}: max |kernel - plain| = "
+              f"{err:.3e}")
+    for case in AC.DECODE_CASES + [AC.DECODE_SERVE]:
+        q, k, v, k_pos, pos, chunk = AC.decode_inputs(case, dev)
+        chunk = chunk or DK.default_chunk(q.shape[0], k.shape[2],
+                                          k.shape[1])
+        part = DK.decode_partials_cuda(q, k, v, k_pos, pos, chunk)
+        torch.cuda.synchronize()
+        plain = DR.decode_partials_ref(q, k, v, k_pos, pos, chunk)
+        # float32 partials whatever the input type: summation order only
+        for name, a, b, atol in zip(("m", "l", "acc"), part, plain,
+                                    (1e-5, 1e-4, 1e-4)):
+            check(torch.allclose(a, b, atol=atol, rtol=1e-5),
+                  f"decode {case}: partial {name}")
+        got, want = DO.combine(*part, q.dtype), DO.combine(*plain, q.dtype)
+        oracle = DR.decode_attention_ref(q, k, v, k_pos, pos)
+        tol = AC.tolerance(case[-1])
+        check(torch.allclose(got.float(), want.float(), **tol)
+              and torch.allclose(got.float(), oracle.float(), **tol),
+              f"decode {case}: output")
+        err = float((got.float() - want.float()).abs().max())
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        print(f"[parity] decode_attention {case} chunk {chunk}: max "
+              f"|kernel - plain| = {err:.3e} (output), partials within "
+              f"1e-4")
+    print(f"[parity] attention kernels agree with their plain versions "
+          f"at {len(AC.FLASH_CASES) + len(AC.DECODE_CASES) + 2} shapes "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return errs
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's two attention ops to their plain versions, also
+    on CUDA tensors: for the comparison runs of phase 7 only (the port's
+    ops never fall back)."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as A
+
+    def flash(q, k, v, q_pos=None, k_pos=None, *, causal, window, block):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    def decode(q, k, v, k_pos, pos, *, block_k=None):
+        chunk = block_k or DK.default_chunk(q.shape[0], k.shape[2],
+                                            k.shape[1])
+        return DO.combine(*DR.decode_partials_ref(q, k, v, k_pos, pos,
+                                                  chunk), q.dtype)
+
+    saved = A.flash_attention, A.decode_attention
+    A.flash_attention, A.decode_attention = flash, decode
+    try:
+        yield
+    finally:
+        A.flash_attention, A.decode_attention = saved
+
+
+def serving_path(dev):
+    """Phase 7: qwen3-8b served at full width through the kernels; then
+    the kernel path's logits against the plain attention path on the
+    same weights, and prefill + decode against `forward` (2 layers).
+    Returns the launch counts of the serving run and the weights and
+    prompts for phase 8."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.launch import serve
+    from repro_torch.models import (ApplyOptions, decode_step, forward,
+                                    init_params, prefill)
+    from repro_torch.models import attention as A
+
+    cfg = get_config("qwen3-8b")
+    B, P, GEN = 8, 1024, 32
+    # count every call of a plain attention path: the serving run makes none
+    plain = [0]
+    patched = [(FO, "attention_ref"), (DO, "decode_partials_ref"),
+               (A, "_score_block"), (A, "_score_block_grouped")]
+    saved = [getattr(m, n) for m, n in patched]
+
+    def counted(fn):
+        def wrapped(*a, **kw):
+            plain[0] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for (m, n), fn in zip(patched, saved):
+        setattr(m, n, counted(fn))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.LAUNCHES, DK.LAUNCHES = 0, 0
+    t0 = time.perf_counter()
+    res = serve.main(SERVE_ARGV)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": FK.LAUNCHES,
+                "decode_attention": DK.LAUNCHES}
+    for (m, n), fn in zip(patched, saved):
+        setattr(m, n, fn)
+    L = cfg.num_layers
+    check(launches == {"flash_attention": L, "decode_attention": L * GEN},
+          f"serving launches {launches}, expected {L} and {L * GEN}")
+    check(plain[0] == 0, f"serving path called a plain version "
+          f"{plain[0]} times")
+    gen = res["generated"]
+    check(gen.shape == (B, GEN) and gen.min() >= 0
+          and gen.max() < cfg.vocab_size, "generated tokens")
+    print(f"[serve] qwen3-8b full width ({L} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, bf16), batch {B}, "
+          f"prompt {P}, {GEN} tokens: main() {wall:.2f} s wall (weights, "
+          f"prefill, decode); decode loop {res['wall_s']} s, "
+          f"{res['tok_per_s_sim']} tok/s; launches flash {L}, decode "
+          f"{L * GEN}; plain-version calls 0; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the same weights and prompts through three paths: the kernels, the
+    # kernels' plain versions, and the model's plain attention path
+    t0 = time.perf_counter()
+    kern = ApplyOptions(attn_impl="cuda")
+    ref = ApplyOptions(attn_impl="reference")
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    batch = serve.make_prompts(cfg, B, P, 0, dev)
+    names = ("plain versions", "plain path")
+
+    def run(opts, plain_ops, fn, *args):
+        if plain_ops:
+            with plain_attention():
+                return fn(cfg, opts, params, *args)
+        return fn(cfg, opts, params, *args)
+
+    with torch.no_grad():
+        lk, ck = run(kern, False, prefill, batch)
+        others = [run(kern, True, prefill, batch),
+                  run(ref, False, prefill, batch)]
+        check(bool(torch.isfinite(lk).all()), "prefill logits not finite")
+        pre_err = [rel_err(lk, lo) for lo, _ in others]
+        check(max(pre_err) <= LOGITS_REL_TOL, f"prefill rel err {pre_err}")
+        # the bf16 noise floor: the two plain paths against each other
+        floor = rel_err(others[0][0], others[1][0])
+        ck = serve.rehome_cache(cfg, ck, B, P + GEN)
+        caches = [serve.rehome_cache(cfg, c, B, P + GEN) for _, c in others]
+        del others
+        fed = torch.cat([lk.argmax(-1)[:, None],
+                         torch.from_numpy(gen[:, :-1]).to(dev)], dim=1)
+        worst, same = list(pre_err), 0
+        for j in range(GEN):
+            step = {"tokens": fed[:, j:j + 1]}
+            lk, ck = run(kern, False, decode_step, ck, step)
+            check(bool(torch.isfinite(lk).all()), f"decode {j} not finite")
+            same += int((lk.argmax(-1).cpu().numpy() == gen[:, j]).sum())
+            for i, (opts, plain_ops) in enumerate(((kern, True),
+                                                   (ref, False))):
+                lo, caches[i] = run(opts, plain_ops, decode_step,
+                                    caches[i], step)
+                e = rel_err(lk, lo)
+                check(e <= LOGITS_REL_TOL,
+                      f"decode step {j} vs {names[i]}: rel err {e}")
+                worst[i] = max(worst[i], e)
+    del ck, caches, lk, lo
+    print(f"[serve] kernel path vs the kernels' plain versions, same "
+          f"weights and tokens: logits rel L2 err prefill {pre_err[0]:.3e},"
+          f" worst of prefill and 32 teacher-forced decode steps "
+          f"{worst[0]:.3e}; "
+          f"vs the model's plain attention path (attn_impl 'reference'): "
+          f"{pre_err[1]:.3e}, {worst[1]:.3e} (bar {LOGITS_REL_TOL}); the two "
+          f"plain paths against each other at prefill {floor:.3e}; the "
+          f"rerun reproduces {same} of {B * GEN} served tokens "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = init_params(cfg2, torch.Generator().manual_seed(1), dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, P + 4),
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        full, _ = forward(cfg2, kern, p2, {"tokens": toks})
+        lk, c2 = prefill(cfg2, kern, p2, {"tokens": toks[:, :P]})
+        errs = [rel_err(lk, full[:, P - 1])]
+        c2 = serve.rehome_cache(cfg2, c2, 2, P + 4)
+        for j in range(3):
+            lk, c2 = decode_step(cfg2, kern, p2, c2,
+                                 {"tokens": toks[:, P + j:P + j + 1]})
+            errs.append(rel_err(lk, full[:, P + j]))
+    check(max(errs) <= LOGITS_REL_TOL, f"decode vs forward {errs}")
+    del p2, full, c2
+    torch.cuda.empty_cache()
+    print(f"[serve] prefill + decode vs forward, qwen3-8b widths x 2 "
+          f"layers, prompt {P}: rel L2 err "
+          + " ".join(f"{e:.3e}" for e in errs)
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    return launches, params, batch
+
+
+def device_breakdown(fn, label: str) -> None:
+    """Print the device time of one call of ``fn`` by kernel family and
+    its share of the call's wall time, from `torch.profiler`. A reading,
+    not a check: if the profiler gives no device events it says so."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        groups = {}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            name = ev.name.lower()
+            fam = ("flash_attention kernel" if "flash_fwd" in name else
+                   "decode_attention kernel" if "decode_partials" in name
+                   else "matmul" if any(w in name for w in (
+                       "gemm", "cutlass", "xmma", "nvjet", "sm90"))
+                   else "other")
+            n, us = groups.get(fam, (0, 0.0))
+            groups[fam] = (n + 1, us + ev.time_range.elapsed_us())
+        busy = sum(us for _, us in groups.values())
+        if not groups:
+            print(f"[profile] {label}: no device events; not measured")
+            return
+        print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device "
+              f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%, idle "
+              f"{100 - 100 * busy / wall_us:.1f}%); "
+              + "; ".join(f"{fam} {us / 1e3:.3f} ms in {n} launches"
+                          for fam, (n, us) in sorted(
+                              groups.items(), key=lambda x: -x[1][1])))
+    except Exception as e:  # a reading only: the smoke's checks stand
+        print(f"[profile] {label}: not measured ({type(e).__name__}: {e})")
+
+
+def attention_timings(dev, serving, errs) -> list:
+    """Phase 8: prefill and decode-step time at full width, and each
+    attention kernel at its serving shape beside its bound, its plain
+    version and the library call. Returns the kernels' JSON rows."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.launch import serve
+    from repro_torch.models import ApplyOptions, decode_step, prefill
+
+    launches, params, batch = serving
+    cfg = get_config("qwen3-8b")
+    kern = ApplyOptions(attn_impl="cuda")
+    with torch.no_grad():
+        pre_ms = cuda_ms(lambda: prefill(cfg, kern, params, batch), reps=3,
+                         warmup=1)
+        _, cache = prefill(cfg, kern, params, batch)
+        cache = serve.rehome_cache(cfg, cache, 8, 1056)
+        step = {"tokens": batch["tokens"][:, :1]}
+        # the last step of the serve: every one of the 1,056 slots live
+        def dec():
+            decode_step(cfg, kern, params,
+                        {"blocks": cache["blocks"], "pos": 1055}, step)
+
+        dec_ms = cuda_ms(dec, reps=10, warmup=2)
+        device_breakdown(lambda: prefill(cfg, kern, params, batch),
+                         "prefill, batch 8 x 1,024 tokens")
+        device_breakdown(dec, "one decode step, batch 8, 1,056 positions")
+    del params, batch, cache
+    torch.cuda.empty_cache()
+    print(f"[time] qwen3-8b full width, batch 8: prefill of 1,024 tokens "
+          f"{pre_ms:.3f} ms ({8 * 1024 / pre_ms * 1e3:.0f} tok/s); one "
+          f"decode step at 1,056 cached positions {dec_ms:.3f} ms "
+          f"({8 / dec_ms * 1e3:.1f} tok/s)")
+
+    rows = []
+    # flash attention, one prefill layer
+    B, S, H, K, hd = AC.FLASH_SERVE[:5]
+    q, k, v = AC.flash_inputs(AC.FLASH_SERVE, dev)
+    f_ms = cuda_ms(lambda: FK.flash_attention_cuda(q, k, v), reps=20,
+                   warmup=3)
+    f_plain = cuda_ms(lambda: FR.attention_ref(q, k, v), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20, warmup=3)
+    f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    # causal: each row attends to its own prefix, S (S + 1) / 2 pairs, and
+    # each pair costs 2 hd flops in Q K^T and 2 hd in P V
+    f_flops = 4 * B * H * hd * S * (S + 1) / 2
+    f_bytes_ms = f_bytes / HBM_BYTES_PER_S * 1e3
+    f_ops_ms = f_flops / BF16_PER_S * 1e3
+    f_bound = max(f_bytes_ms, f_ops_ms)
+    print(f"[time] flash_attention kernel {AC.FLASH_SERVE}: {f_ms:.4f} ms; "
+          f"bound {f_bound:.4f} ms by "
+          f"{'operations' if f_ops_ms >= f_bytes_ms else 'bytes'} "
+          f"({f_flops:.4g} flop at the bf16 tensor rate {f_ops_ms:.4f} ms; "
+          f"{f_bytes / 1e6:.1f} MB {f_bytes_ms:.4f} ms; on the fp32 path "
+          f"the kernel uses, {f_flops / FP32_PER_S * 1e3:.4f} ms); "
+          f"{f_flops / f_ms / 1e9:.1f} TFLOP/s; plain version "
+          f"{f_plain:.3f} ms; scaled_dot_product_attention {f_lib:.4f} ms")
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+        "launches": launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"], "ms": f_ms,
+        "plain_ms": f_plain, "bound_ms": f_bound,
+        "bound_by": "operations" if f_ops_ms >= f_bytes_ms else "bytes",
+        "library_ms": f_lib})
+    del q, k, v, qt, kt, vt
+
+    # split-KV decode, one decode layer; four caches in turn so that each
+    # launch finds its 34.6 MB cold in the 50 MB L2, as a layer does
+    B, T, H, K, hd, pos = AC.DECODE_SERVE[:6]
+    sets = [AC.decode_inputs(AC.DECODE_SERVE, dev, seed=i) for i in range(4)]
+    q, _, _, k_pos, _, _ = sets[0]
+    chunk = DK.default_chunk(B, K, T)
+    ring = itertools.cycle(sets)
+
+    def kernel_call():
+        qq, kk, vv, kp, _, _ = next(ring)
+        DK.decode_partials_cuda(qq, kk, vv, kp, pos, chunk)
+
+    def op_call():
+        qq, kk, vv, kp, _, _ = next(ring)
+        DO.decode_attention(qq, kk, vv, kp, pos, block_k=chunk)
+
+    lib_sets = [(qq[:, :, None], kk.transpose(1, 2).contiguous(),
+                 vv.transpose(1, 2).contiguous())
+                for qq, kk, vv, _, _, _ in sets]
+    lib_ring = itertools.cycle(lib_sets)
+
+    def lib_call():
+        qq, kk, vv = next(lib_ring)
+        F.scaled_dot_product_attention(qq, kk, vv, enable_gqa=True)
+
+    d_ms = cuda_ms(kernel_call, reps=40, warmup=4)
+    d_op = cuda_ms(op_call, reps=40, warmup=4)
+    d_plain = cuda_ms(lambda: DR.decode_partials_ref(*sets[0][:4], pos,
+                                                     chunk), reps=10)
+    d_lib = cuda_ms(lib_call, reps=40, warmup=4)
+    k0 = sets[0][1]
+    n_split = -(-T // chunk)
+    live = int((k_pos >= 0).sum())  # every slot is live at pos 1055
+    d_bytes = (q.numel() * q.element_size() + 2 * B * live * K * hd
+               * k0.element_size() + k_pos.numel() * 4
+               + B * H * n_split * (hd + 2) * 4)
+    d_flops = 4 * B * H * live * hd
+    d_bytes_ms = d_bytes / HBM_BYTES_PER_S * 1e3
+    d_ops_ms = d_flops / BF16_PER_S * 1e3
+    d_bound = max(d_bytes_ms, d_ops_ms)
+    print(f"[time] decode_attention kernel {AC.DECODE_SERVE}, {n_split} "
+          f"splits of {chunk}: {d_ms:.4f} ms (with the combine "
+          f"{d_op:.4f} ms); bound {d_bound:.4f} ms by "
+          f"{'bytes' if d_bytes_ms >= d_ops_ms else 'operations'} "
+          f"({d_bytes / 1e6:.2f} MB, {d_bytes / d_ms / 1e6:.1f} GB/s "
+          f"achieved); plain version {d_plain:.3f} ms; "
+          f"scaled_dot_product_attention {d_lib:.4f} ms")
+    rows.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:28",
+        "launches": launches["decode_attention"],
+        "max_abs_err": errs["decode_attention"], "ms": d_ms,
+        "plain_ms": d_plain, "bound_ms": d_bound,
+        "bound_by": "bytes" if d_bytes_ms >= d_ops_ms else "operations",
+        "library_ms": d_lib})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -119,10 +560,14 @@ def main() -> int:
     print(f"[setup] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device {name}, "
           f"count {torch.cuda.device_count()}")
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
     t0 = time.perf_counter()
-    lib = _build.build(K.SOURCE)
-    print(f"[setup] built {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    lib, *attn_libs = _build.build_all([K.SOURCE, FK.SOURCE, DK.SOURCE])
+    print(f"[setup] built {lib.relative_to(ROOT)}, "
+          + ", ".join(str(x.relative_to(ROOT)) for x in attn_libs)
+          + f" in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
+          f"parallel)")
     loop_instr = {mode: sass.kernel_loop_instructions(lib, part)
                   for mode, part in (("summary", SUMMARY_KERNEL),
                                      ("trace", TRACE_KERNEL))}
@@ -322,13 +767,20 @@ def main() -> int:
     print("[time] library yardstick: none (no single PyTorch call "
           "computes this closed loop)")
 
+    del big_noise, prof, gains, seeds, big_prof, big_gains
+    torch.cuda.empty_cache()
+
+    attn_err = attention_parity(dev)                      # phase 6
+    serve_launches = serving_path(dev)                    # phase 7
+    attn_rows = attention_timings(dev, serve_launches, attn_err)  # 8
+
     print(json.dumps({"kernels": [{
         "name": "closed_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/closed_loop/csrc/closed_loop.cu",
         "replaces": "src/repro/kernels/closed_loop/kernel.py:59",
         "launches": launches, "max_abs_err": max_err, "ms": kern_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}] + attn_rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

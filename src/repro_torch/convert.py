@@ -1,11 +1,14 @@
-"""Carry the reference's packed parameters across to the port.
+"""Carry the reference's arrays across to the port.
 
 `from_reference` takes numpy arrays in the JAX package's packing —
 ``np.asarray(repro.core.sim.profile_values(p))`` rows, ``np.asarray(
 repro.core.plane.gains_values(g))`` rows, and optionally a (T, 5, B)
 noise array from the reference's ``draw_noise`` — and returns the
-port's tensors, so both packages compute from identical inputs. It
-imports nothing of the reference: it only reads numpy arrays.
+port's tensors, so both packages compute from identical inputs.
+`params_from_reference` and `cache_from_reference` do the same for the
+LM substrate's parameter and KV-cache trees (dicts and tuples of
+arrays). Nothing here imports the reference: it only reads arrays
+through ``np.asarray``.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.layers import tree_map
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -43,3 +47,21 @@ def from_reference(prof_vals, gains_vals, noise=None,
     if noise is None:
         return prof, gains
     return prof, gains, _tensor(noise, dev).to(torch.float32)
+
+
+def params_from_reference(tree, device: Union[None, str, torch.device] = None
+                          ) -> dict:
+    """The reference's parameter tree (`repro.models.init_params`; leaves
+    float32 or bfloat16 arrays) -> the port's, with the same structure,
+    dtypes and values, on ``device`` (CUDA unless told otherwise)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), tree)
+
+
+def cache_from_reference(cache, device: Union[None, str, torch.device] = None
+                         ) -> dict:
+    """The reference's cache tree (``{"blocks": ..., "pos": int32}``) ->
+    the port's: KV tensors on ``device``, ``pos`` a Python int."""
+    dev = resolve_device(device)
+    return {"blocks": tree_map(lambda a: _tensor(a, dev), cache["blocks"]),
+            "pos": int(np.asarray(cache["pos"]))}

@@ -17,14 +17,17 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # No --use_fast_math: expf/logf/sqrtf and division stay IEEE-accurate.
 # -fmad=false: no contraction of a*x + b into an FMA, which the plain
-# PyTorch version (one op per kernel) never does.
+# PyTorch version (one op per kernel) never does. Kernels whose inner
+# loops are dot products (the attention kernels) write their FMAs
+# explicitly with fmaf, which this flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -73,6 +76,13 @@ def build(source: Path) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build_all(sources: Sequence[Path]) -> List[Path]:
+    """Build several sources at once, one nvcc process each, all started
+    together; return their libraries in order."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(build, sources))
 
 
 def load(source: Path) -> ctypes.CDLL:

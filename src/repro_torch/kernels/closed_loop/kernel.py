@@ -15,7 +15,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, check_tensor
 from repro_torch.kernels.closed_loop import ref as R
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "closed_loop.cu"
@@ -58,21 +58,6 @@ def unpack_final(state, phist, chist) -> Dict[str, torch.Tensor]:
     return c
 
 
-def _check(name, x, shape, dtypes, dev):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor")
-    if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, expected {dev}")
-    if x.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {x.dtype}; the kernel takes "
-                        f"{', '.join(map(str, dtypes))}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def closed_loop_cuda(prof: torch.Tensor, gains: torch.Tensor,
                      noise: torch.Tensor, scalars: Sequence[float],
                      collect: bool = True
@@ -99,9 +84,9 @@ def closed_loop_cuda(prof: torch.Tensor, gains: torch.Tensor,
         raise ValueError(f"noise must be (T, 5, B), got {tuple(noise.shape)}")
     B, T = prof.shape[0], noise.shape[0]
     row_types = (torch.float32, torch.bfloat16)
-    _check("prof", prof, (B, N_PROF), row_types, dev)
-    _check("gains", gains, (B, N_GAIN), (prof.dtype,), dev)
-    _check("noise", noise, (T, R.N_NOISE, B), (torch.float32,), dev)
+    check_tensor("prof", prof, (B, N_PROF), row_types, dev)
+    check_tensor("gains", gains, (B, N_GAIN), (prof.dtype,), dev)
+    check_tensor("noise", noise, (T, R.N_NOISE, B), (torch.float32,), dev)
     if len(scalars) != 4:
         raise ValueError("scalars are (total_work, max_time, dt, "
                          "summary_from)")

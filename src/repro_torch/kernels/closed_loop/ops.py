@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.counter_rng import M32, mix32, unit24
 from repro_torch.kernels.closed_loop import ref as R
 from repro_torch.kernels.closed_loop.kernel import (closed_loop_cuda,
                                                     unpack_final)
@@ -29,7 +30,6 @@ from repro_torch.kernels.closed_loop.kernel import (closed_loop_cuda,
 # chunk rounds it; runs are frozen (done) before the padded tail.
 CHUNK_T = 64
 
-_M32 = 0xFFFFFFFF
 # int64 elements per temporary while drawing: keeps a 100k-run grid's
 # integer scratch to a few hundred MB
 _CHUNK_ELEMS = 1 << 25
@@ -39,40 +39,17 @@ _WORDS = {R.NZ_PROG: (0, 1), R.NZ_POW: (2, 3), R.NU_ENTER: (4,),
           R.NU_EXIT: (5,), R.NZ_HB: (6, 7)}
 
 
-def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
-    """(x * m) mod 2**32 for 0 <= x < 2**32, in int64 without overflow
-    (the multiplier is split into 16-bit halves)."""
-    lo, hi = m & 0xFFFF, m >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """murmur3's 32-bit finalizer: a bijection on [0, 2**32) with full
-    avalanche."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def _unit(x: torch.Tensor) -> torch.Tensor:
-    """32-bit words -> float32 uniforms in [0, 1) from their top 24 bits
-    (exact: every value is a multiple of 2**-24)."""
-    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
-
-
 def _noise_words(seeds: torch.Tensor, word: int, t0: int, t1: int
                 ) -> torch.Tensor:
     """The 32-bit words (as int64) of stream ``word`` at steps [t0, t1)
     for runs with int64 ``seeds`` -> (t1 - t0, B)."""
     s = seeds.to(torch.int64)
-    k = _mix32((s & _M32) ^ 0x3C6EF372)
-    k = _mix32(k ^ ((s >> 32) & _M32))
-    k = _mix32((k + (word + 1) * 0x9E3779B9) & _M32)         # (B,)
+    k = mix32((s & M32) ^ 0x3C6EF372)
+    k = mix32(k ^ ((s >> 32) & M32))
+    k = mix32((k + (word + 1) * 0x9E3779B9) & M32)         # (B,)
     t = torch.arange(t0, t1, dtype=torch.int64, device=seeds.device)
-    h = _mix32((t * 0x27D4EB2F + 0x165667B1) & _M32)         # (Tc,)
-    return _mix32((h[:, None] + k[None, :]) & _M32)
+    h = mix32((t * 0x27D4EB2F + 0x165667B1) & M32)         # (Tc,)
+    return mix32((h[:, None] + k[None, :]) & M32)
 
 
 def draw_noise(seeds: Union[Sequence[int], torch.Tensor], T: int,
@@ -99,9 +76,9 @@ def draw_noise(seeds: Union[Sequence[int], torch.Tensor], T: int,
     for t0 in range(0, T, step):
         t1 = min(T, t0 + step)
         for ch, words in _WORDS.items():
-            u = _unit(_noise_words(seeds, words[0], t0, t1))
+            u = unit24(_noise_words(seeds, words[0], t0, t1))
             if len(words) == 2:
-                u2 = _unit(_noise_words(seeds, words[1], t0, t1))
+                u2 = unit24(_noise_words(seeds, words[1], t0, t1))
                 # Box-Muller; 1 - u lies in (0, 1], so the log is finite
                 u = (torch.sqrt(-2.0 * torch.log(1.0 - u))
                      * torch.cos((2.0 * math.pi) * u2))

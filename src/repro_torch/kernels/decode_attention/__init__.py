@@ -1,0 +1,8 @@
+"""Split-KV decode attention: `ref.py` (plain PyTorch versions, the CPU
+path and the oracle), `kernel.py` (wrapper of the CUDA kernel in
+`csrc/`), `ops.py` (the public `decode_attention` op: partials + the
+log-sum-exp combine)."""
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+__all__ = ["decode_attention", "decode_attention_ref"]

@@ -1,10 +1,13 @@
-"""The closed-loop CUDA kernel against its plain PyTorch version, on the
-card. Every test here needs a CUDA device and skips without one; the
-file imports no jax, so it runs where only torch is installed:
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the closed-loop kernel, flash attention and split-KV decode attention
+(the attention bar is `repro_torch.kernels.attention_cases`), and the
+serving path through them. Every test here needs a CUDA device and
+skips without one; the file imports no jax, so it runs where only torch
+is installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance, and why: `repro_torch.kernels.closed_loop.parity` —
+Closed-loop tolerance, and why: `repro_torch.kernels.closed_loop.parity` —
 ulp-level differences between the kernel's and PyTorch's float paths
 can flip a heartbeat count by one, so counts and masks must be equal,
 at least 99.9% of progress entries equal (rtol 1e-5), caps within
@@ -21,6 +24,13 @@ from repro_torch.kernels.closed_loop import kernel as K  # noqa: E402
 from repro_torch.kernels.closed_loop import ops  # noqa: E402
 from repro_torch.kernels.closed_loop import ref as R  # noqa: E402
 from repro_torch.kernels.closed_loop import parity as P  # noqa: E402
+from repro_torch.kernels import attention_cases as AC  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as DK  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as DO  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as DR  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as FR  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +121,88 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         K.closed_loop_cuda(prof, gains, noise[:, :4], sc)
     with pytest.raises(ValueError):
         K.closed_loop_cuda(prof, gains.cpu(), noise, sc)
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", AC.FLASH_CASES + [AC.FLASH_SERVE],
+                         ids=str)
+def test_flash_kernel_matches_plain_version(dev, case):
+    causal, window, dtype = case[5], case[6], case[7]
+    q, k, v = AC.flash_inputs(case, dev)
+    before = FK.LAUNCHES
+    got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert FK.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    want = FR.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **AC.tolerance(dtype))
+
+
+@pytest.mark.parametrize("case", AC.DECODE_CASES + [AC.DECODE_SERVE],
+                         ids=str)
+def test_decode_kernel_matches_plain_version(dev, case):
+    q, k, v, k_pos, pos, chunk = AC.decode_inputs(case, dev)
+    chunk = chunk or DK.default_chunk(q.shape[0], k.shape[2], k.shape[1])
+    before = DK.LAUNCHES
+    m, l, acc = DK.decode_partials_cuda(q, k, v, k_pos, pos, chunk)
+    assert DK.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    mr, lr, ar = DR.decode_partials_ref(q, k, v, k_pos, pos, chunk)
+    # float32 partials whatever the input type: summation order only
+    torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, lr, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(acc, ar, atol=1e-4, rtol=1e-5)
+    got = DO.decode_attention(q, k, v, k_pos, pos, block_k=chunk)
+    want = DR.decode_attention_ref(q, k, v, k_pos, pos)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **AC.tolerance(case[-1]))
+
+
+def test_decode_kernel_split_invariance(dev):
+    q, k, v, k_pos, pos, _ = AC.decode_inputs(
+        (1, 256, 4, 2, 32, 255, False, None, "float32"), dev, seed=3)
+    outs = [DO.decode_attention(q, k, v, k_pos, pos, block_k=b)
+            for b in (256, 32, 64, 128, 96, None)]
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], atol=1e-5, rtol=1e-5)
+
+
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q, k, v = AC.flash_inputs((1, 64, 4, 2, 32, True, None, "float32"), dev)
+    with pytest.raises(TypeError):
+        FK.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        FK.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_attention_cuda(q, k.transpose(1, 2).contiguous()
+                                .transpose(1, 2), v)
+    with pytest.raises(ValueError):
+        FK.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="hd"):
+        FK.flash_attention_cuda(*(torch.zeros(1, 8, 2, 160, device=dev),) * 3)
+    qd, kd, vd, k_pos, pos, _ = AC.decode_inputs(AC.DECODE_CASES[0], dev)
+    with pytest.raises(TypeError):
+        DK.decode_partials_cuda(qd, kd, vd, k_pos.long(), pos, 64)
+    with pytest.raises(ValueError, match="shape"):
+        DK.decode_partials_cuda(qd, kd, vd, k_pos[:10], pos, 64)
+    with pytest.raises(ValueError):
+        FO.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_serving_path_runs_through_the_kernels(dev):
+    """Reduced qwen3-8b served on the card: one flash launch for the
+    1,024-token prefill (the reduced model has one layer), one decode
+    launch per generated token, and the CPU run's greedy tokens."""
+    from repro_torch.launch import serve
+    argv = ["--reduced", "--batch", "2", "--prompt-len", "1024", "--gen",
+            "4", "--quiet"]
+    f0, d0 = FK.LAUNCHES, DK.LAUNCHES
+    got = serve.main(argv, device=dev)["generated"]
+    assert (FK.LAUNCHES - f0, DK.LAUNCHES - d0) == (1, 4)
+    want = serve.main(argv, device="cpu")["generated"]
+    np.testing.assert_array_equal(got, want)

@@ -16,11 +16,19 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 
 def test_import_loads_no_jax_and_no_reference():
+    """Importing the port, its models, its serving driver and its kernel
+    packages loads no jax and no `repro`, and loads (so builds) no
+    kernel library."""
     code = ("import sys, repro_torch, repro_torch.core.sim, "
-            "repro_torch.kernels.closed_loop.ops, repro_torch.convert\n"
+            "repro_torch.kernels.closed_loop.ops, repro_torch.convert, "
+            "repro_torch.models, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.decode_attention\n"
+            "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            "m.startswith('repro.') or m == 'triton')\n"
+            "bad += ['built'] * len(_build._LOADED)\n"
             "print(','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ,
