@@ -141,7 +141,7 @@ def attention_parity(dev) -> dict:
 
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     t0 = time.perf_counter()
-    for case in AC.FLASH_CASES + [AC.FLASH_SERVE]:
+    for case in AC.FLASH_CASES + [AC.FLASH_SERVE, AC.FLASH_SERVE_F32]:
         causal, window, dtype = case[5:]
         q, k, v = AC.flash_inputs(case, dev)
         got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -154,6 +154,37 @@ def attention_parity(dev) -> dict:
         errs["flash_attention"] = max(errs["flash_attention"], err)
         print(f"[parity] flash_attention {case}: max |kernel - plain| = "
               f"{err:.3e}")
+    # the bf16 serving shape once more, row by row against the float32
+    # plain version on the same inputs; a kernel that lost one KV tile
+    # (kBQ = 64 query rows, kBK = 32 keys per tile) for the last query
+    # tile reads what `AC.drop_kv_tile` gives
+    causal, window = AC.FLASH_SERVE[5:7]
+    q, k, v = AC.flash_inputs(AC.FLASH_SERVE, dev)
+    got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    ref32 = FR.attention_ref(q.float(), k.float(), v.float(),
+                             causal=causal, window=window)
+    row = AC.row_rel_err(got, ref32)
+    S = q.shape[1]
+    last = slice(S - 64, S)
+    faults = {"its last KV tile": slice(S - 32, S),
+              "a middle KV tile": slice(S // 2, S // 2 + 32)}
+    reads = {name: AC.row_rel_err(AC.drop_kv_tile(
+        q, k, v, last, keys, causal=causal, window=window), ref32)
+        for name, keys in faults.items()}
+    del ref32
+    print(f"[parity] flash_attention {AC.FLASH_SERVE}: largest row "
+          f"relative L2 against float32 on the same inputs {row:.4e} "
+          f"(bar {AC.ROW_REL_BAR:.1e}); a kernel that drops, for the last "
+          f"64 query rows, " + "; ".join(
+              f"{n} reads {r:.4e}" for n, r in reads.items()))
+    check(row <= AC.ROW_REL_BAR,
+          f"flash {AC.FLASH_SERVE}: row relative L2 {row} > "
+          f"{AC.ROW_REL_BAR}")
+    check(min(reads.values()) > AC.ROW_REL_BAR,
+          f"the row bar {AC.ROW_REL_BAR} does not separate a dropped KV "
+          f"tile: {reads}")
+    errs["flash_row_rel"] = row
+    errs["flash_fault_row_rel"] = min(reads.values())
     for case in AC.DECODE_CASES + [AC.DECODE_SERVE]:
         q, k, v, k_pos, pos, chunk = AC.decode_inputs(case, dev)
         chunk = chunk or DK.default_chunk(q.shape[0], k.shape[2],
@@ -178,7 +209,7 @@ def attention_parity(dev) -> dict:
               f"|kernel - plain| = {err:.3e} (output), partials within "
               f"1e-4")
     print(f"[parity] attention kernels agree with their plain versions "
-          f"at {len(AC.FLASH_CASES) + len(AC.DECODE_CASES) + 2} shapes "
+          f"at {len(AC.FLASH_CASES) + len(AC.DECODE_CASES) + 3} shapes "
           f"({time.perf_counter() - t0:.1f} s)")
     return errs
 
@@ -277,7 +308,7 @@ def serving_path(dev):
     t0 = time.perf_counter()
     kern = ApplyOptions(attn_impl="cuda")
     ref = ApplyOptions(attn_impl="reference")
-    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    params = init_params(cfg, 0, dev)
     batch = serve.make_prompts(cfg, B, P, 0, dev)
     names = ("plain versions", "plain path")
 
@@ -328,7 +359,7 @@ def serving_path(dev):
 
     t0 = time.perf_counter()
     cfg2 = dataclasses.replace(cfg, num_layers=2)
-    p2 = init_params(cfg2, torch.Generator().manual_seed(1), dev)
+    p2 = init_params(cfg2, 1, dev)
     toks = torch.randint(0, cfg.vocab_size, (2, P + 4),
                          generator=torch.Generator().manual_seed(2)).to(dev)
     with torch.no_grad():

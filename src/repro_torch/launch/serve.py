@@ -106,7 +106,7 @@ def main(argv=None, device: Union[None, str, torch.device] = None
     total_len = args.prompt_len + args.gen
     opts = ApplyOptions(attn_impl="cuda")
 
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed), dev)
+    params = init_params(cfg, args.seed, dev)
     pre_fn = make_prefill_step(cfg, opts)
     dec_fn = make_decode_step(cfg, opts)
     batch = make_prompts(cfg, args.batch, args.prompt_len, args.seed, dev)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.counter_rng import M32, mix32, unit24
 
 # ---------------------------------------------------------------------------
@@ -125,15 +126,15 @@ def _trunc_normal(n: int, key: int, device: torch.device) -> torch.Tensor:
     return out
 
 
-def materialize(defs, gen: torch.Generator, dtype,
-                device: Union[str, torch.device] = "cpu") -> dict:
-    """ParamDef tree -> tensor tree on ``device``. Each leaf is a
-    counter-based stream keyed by ``gen``'s seed and the CRC-32 of the
+def materialize(defs, seed: int, dtype,
+                device: Union[None, str, torch.device] = None) -> dict:
+    """ParamDef tree -> tensor tree on ``device`` (CUDA unless the caller
+    passes ``device="cpu"``; see `repro_torch.resolve_device`). Each leaf
+    is a counter-based stream keyed by ``seed`` and the CRC-32 of the
     leaf's path, so a leaf's values depend neither on the other leaves
     nor on the device."""
-    seed = gen.initial_seed()
     dtype = _dtype(dtype)
-    device = torch.device(device)
+    device = resolve_device(device)
     # tree_map visits the leaves in tree_leaves_with_path's order
     paths = iter(p for p, _ in tree_leaves_with_path(defs, is_def))
     return tree_map(lambda d: _materialize_one(d, seed, next(paths), dtype,

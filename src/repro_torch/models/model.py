@@ -78,10 +78,10 @@ def model_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device="cpu") -> dict:
-    """Random weights from ``gen``'s seed (see `layers.materialize`)."""
-    return materialize(model_defs(cfg), gen, cfg.param_dtype, device)
+def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
+    """Random weights from ``seed`` on ``device``, CUDA unless the caller
+    passes ``device="cpu"`` (see `layers.materialize`)."""
+    return materialize(model_defs(cfg), seed, cfg.param_dtype, device)
 
 
 def block_cache_defs(cfg: ModelConfig, blk: BlockConfig, batch: int,

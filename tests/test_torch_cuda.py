@@ -128,7 +128,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", AC.FLASH_CASES + [AC.FLASH_SERVE],
+@pytest.mark.parametrize("case", AC.FLASH_CASES + [AC.FLASH_SERVE,
+                                                   AC.FLASH_SERVE_F32],
                          ids=str)
 def test_flash_kernel_matches_plain_version(dev, case):
     causal, window, dtype = case[5], case[6], case[7]
@@ -141,6 +142,17 @@ def test_flash_kernel_matches_plain_version(dev, case):
     assert got.dtype == q.dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(),
                                **AC.tolerance(dtype))
+
+
+def test_flash_kernel_rows_at_the_serving_shape(dev):
+    """bf16 at the serving shape, row by row against the float32 plain
+    version on the same inputs (`attention_cases.ROW_REL_BAR`)."""
+    causal, window = AC.FLASH_SERVE[5:7]
+    q, k, v = AC.flash_inputs(AC.FLASH_SERVE, dev)
+    got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = FR.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                            window=window)
+    assert AC.row_rel_err(got, want) <= AC.ROW_REL_BAR
 
 
 @pytest.mark.parametrize("case", AC.DECODE_CASES + [AC.DECODE_SERVE],

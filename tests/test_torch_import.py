@@ -67,6 +67,13 @@ def test_entry_points_refuse_to_run_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim.simulate_closed_loop("gros", 0.1, total_work=10.0,
                                  max_time=64.0)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(reduced(get_config("qwen3-8b")), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--quiet"])
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

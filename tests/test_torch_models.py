@@ -151,9 +151,9 @@ def test_input_defs_match_reference(arch, mode):
 
 def test_materialize_is_seeded_per_leaf():
     cfg = tcfg.reduced(tcfg.get_config("qwen3-8b"))
-    a = init_params(cfg, torch.Generator().manual_seed(3))
-    b = init_params(cfg, torch.Generator().manual_seed(3))
-    c = init_params(cfg, torch.Generator().manual_seed(4))
+    a = init_params(cfg, 3, "cpu")
+    b = init_params(cfg, 3, "cpu")
+    c = init_params(cfg, 4, "cpu")
     la = L.tree_leaves_with_path(a)
     for (pa, x), (_, y), (_, z) in zip(la, L.tree_leaves_with_path(b),
                                        L.tree_leaves_with_path(c)):
@@ -293,7 +293,7 @@ def test_decode_matches_forward(arch, P):
     full-sequence logits at each decoded position (for the window arch
     also with the ring wrapped)."""
     cfg = tcfg.reduced(tcfg.get_config(arch))
-    params = init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, 0, "cpu")
     B, GEN = 2, 4
     tokens = torch.randint(0, cfg.vocab_size, (B, P + GEN),
                            generator=torch.Generator().manual_seed(1))
@@ -315,14 +315,14 @@ def test_decode_matches_forward(arch, P):
 def test_unported_blocks_raise(arch):
     cfg = tcfg.reduced(tcfg.get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+        init_params(cfg, 0, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.cache_defs(cfg, 1, 8)
 
 
 def test_unknown_attn_impl_raises():
     cfg = tcfg.reduced(tcfg.get_config("qwen3-8b"))
-    params = init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, 0, "cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         forward(cfg, ApplyOptions(attn_impl="pallas"), params,
                 {"tokens": torch.zeros((1, 4), dtype=torch.int64)})

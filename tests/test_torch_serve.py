@@ -31,7 +31,7 @@ def _jax_serve(arch, batch, prompt_len, gen, seed):
     cfg = jcfg.reduced(jcfg.get_config(arch))
     tc = tcfg.reduced(tcfg.get_config(arch))
     params = tree_map(lambda t: jnp.asarray(t.numpy()),
-                      init_params(tc, torch.Generator().manual_seed(seed)))
+                      init_params(tc, seed, "cpu"))
     prompts = {k: jnp.asarray(v.float().numpy() if v.is_floating_point()
                               else v.numpy())
                for k, v in serve.make_prompts(tc, batch, prompt_len, seed,
