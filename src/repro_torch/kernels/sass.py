@@ -2,7 +2,8 @@
 the least time a kernel's time loop could take.
 
 `loop_instructions` finds a kernel's main loop in ``cuobjdump -sass``
-output (the backward branch that spans the most code) and counts the
+output (the backward branch that spans the most code, or the innermost
+loop that holds a given opcode) and counts the
 instructions on the shortest path through one pass of it, from the loop
 head to that backward branch, where every forward branch may be taken
 or not. Slow paths that a pass can skip (the fix-ups of IEEE division
@@ -21,7 +22,7 @@ import math
 import re
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.kernels import _build
 
@@ -57,14 +58,25 @@ def _branch(text: str):
     return int(m.group(3), 16), bool(m.group(1) or m.group(2))
 
 
-def loop_instructions(instrs: Instrs) -> int:
+def loop_instructions(instrs: Instrs, containing: Optional[str] = None
+                      ) -> int:
     """Fewest instructions one pass of the widest loop in ``instrs`` can
-    issue per thread (the backward branch that closes it included)."""
+    issue per thread (the backward branch that closes it included). With
+    ``containing``, the loop is the narrowest one whose body holds an
+    instruction that starts with that text (an opcode such as
+    ``"MUFU.EX2"``): the innermost loop that does a given kind of work."""
     loops = [(addr, b[0]) for addr, text in instrs
              if (b := _branch(text)) and b[0] < addr]
+    if containing is not None:
+        loops = [(t, h) for t, h in loops
+                 if any(h <= a <= t and x.startswith(containing)
+                        for a, x in instrs)]
     if not loops:
-        raise ValueError("no loop (backward branch) in this function")
-    tail, head = max(loops, key=lambda lt: lt[0] - lt[1])
+        raise ValueError("no loop (backward branch) in this function"
+                         + (f" holds {containing!r}" if containing else ""))
+    width = (lambda lt: lt[1] - lt[0]) if containing else \
+        (lambda lt: lt[0] - lt[1])
+    tail, head = max(loops, key=width)
     body = [(a, t) for a, t in instrs if head <= a <= tail]
     index = {a: i for i, (a, _) in enumerate(body)}
     cost = [math.inf] * len(body)
@@ -92,7 +104,8 @@ def library_sass(lib: Path) -> str:
     return proc.stdout
 
 
-def kernel_loop_instructions(lib: Path, name_part: str) -> int:
+def kernel_loop_instructions(lib: Path, name_part: str,
+                             containing: Optional[str] = None) -> int:
     """`loop_instructions` of the one kernel in ``lib`` whose mangled name
     contains ``name_part``."""
     funcs = {k: v for k, v in functions(library_sass(lib)).items()
@@ -100,4 +113,4 @@ def kernel_loop_instructions(lib: Path, name_part: str) -> int:
     if len(funcs) != 1:
         raise ValueError(f"{len(funcs)} kernels in {lib.name} match "
                          f"{name_part!r}")
-    return loop_instructions(next(iter(funcs.values())))
+    return loop_instructions(next(iter(funcs.values())), containing)

@@ -2,10 +2,12 @@
 greedily token by token; port of `repro.launch.serve`.
 
 The reference's CLI runs the plain attention path
-(``attn_impl="reference"``); the port serves through its CUDA kernels
-(``attn_impl="cuda"``: flash attention in prefill, split-KV decode in
-decode), which fall to their plain versions on the CPU. Weights are
-random, made from ``--seed``.
+(``attn_impl="reference"``) and the chunked Mamba scan; the port serves
+through its CUDA kernels (``attn_impl="cuda"``: flash attention in
+prefill, split-KV decode in decode; ``scan_impl="cuda"``: the selective
+scan of Mamba blocks in both), which fall to their plain versions on the
+CPU. Weights are random, made from ``--seed``. `serve` runs the same
+driver on a given ``ModelConfig`` (for instance a depth-cut one).
 
 CPU quickstart:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
@@ -53,21 +55,77 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
 
 def rehome_cache(cfg: ModelConfig, cache: dict, batch: int, total_len: int
                  ) -> dict:
-    """Re-home a prefill cache into the decode-length cache: KV tensors
-    are zero-padded along the sequence up to ``total_len`` (a sliding
-    window's ring keeps its size), in the compute dtype."""
+    """Re-home a prefill cache into the decode-length cache, as the
+    reference's ``place``: each leaf is zero-padded up to its def's shape
+    (KV tensors along the sequence up to ``total_len``; a sliding window's
+    ring and the Mamba states keep their size) and cast to its def's dtype
+    (the compute dtype, but float32 for the Mamba ``ssm`` state)."""
     defs = M.cache_defs(cfg, batch, total_len)["blocks"]
-    cdt = getattr(torch, cfg.compute_dtype)
 
     def place(d, src):
-        pad = d.shape[2] - src.shape[2]  # [R, B, T, K, hd]
-        out = src.new_zeros(d.shape, dtype=cdt) if pad else src.to(cdt)
-        if pad:
-            out[:, :, :src.shape[2]] = src
+        dtype = getattr(torch, d.dtype or cfg.compute_dtype)
+        if tuple(src.shape) == d.shape:
+            return src.to(dtype)
+        out = src.new_zeros(d.shape, dtype=dtype)
+        out[tuple(slice(0, n) for n in src.shape)] = src
         return out
 
     return {"blocks": tree_map(place, defs, cache["blocks"], is_leaf=is_def),
             "pos": int(cache["pos"])}
+
+
+def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
+          seed: int = 0, device: Union[None, str, torch.device] = None,
+          quiet: bool = True) -> dict:
+    """Serve ``cfg`` with random weights from ``seed``: prefill a batch of
+    ``batch`` random prompts of ``prompt_len`` tokens, then decode ``gen``
+    tokens greedily, through the CUDA kernels (``attn_impl="cuda"``,
+    ``scan_impl="cuda"``; their plain versions on the CPU). Runs on CUDA
+    unless ``device="cpu"``. Returns `main`'s result dict."""
+    dev = resolve_device(device)
+    total_len = prompt_len + gen
+    opts = ApplyOptions(attn_impl="cuda", scan_impl="cuda")
+
+    params = init_params(cfg, seed, dev)
+    pre_fn = make_prefill_step(cfg, opts)
+    dec_fn = make_decode_step(cfg, opts)
+    prompts = make_prompts(cfg, batch, prompt_len, seed, dev)
+
+    logits, cache = pre_fn(params, prompts)
+    dec_cache = rehome_cache(cfg, cache, batch, total_len)
+    del cache
+
+    tokens_out = []
+    sim_time = 0.0
+    next_tok = torch.argmax(logits, dim=-1)[:, None]
+    t0 = time.time()
+    for _ in range(gen):
+        if cfg.input_mode == "tokens":
+            dec_batch = {"tokens": next_tok}
+        else:
+            dec_batch = {"embeds": 0.05 * torch.ones(
+                (batch, 1, cfg.d_model), device=dev,
+                dtype=getattr(torch, cfg.compute_dtype))}
+        t1 = time.time()
+        logits, dec_cache = dec_fn(params, dec_cache, dec_batch)
+        next_tok = torch.argmax(logits, dim=-1)[:, None]
+        tokens_out.append(next_tok.cpu().numpy())  # waits for the step
+        sim_time += max(time.time() - t1, 1e-5)
+
+    toks = gen * batch
+    result = {
+        "tokens": toks,
+        "wall_s": round(time.time() - t0, 3),
+        "sim_time_s": round(sim_time, 3),
+        "tok_per_s_sim": round(toks / max(sim_time, 1e-9), 2),
+        "energy_j": 0.0,
+        "final_pcap": None,
+        # the greedy tokens, [batch, gen]: one key beyond the reference's
+        "generated": np.concatenate(tokens_out, axis=1),
+    }
+    if not quiet:
+        print({k: v for k, v in result.items() if k != "generated"})
+    return result
 
 
 def main(argv=None, device: Union[None, str, torch.device] = None
@@ -99,53 +157,11 @@ def main(argv=None, device: Union[None, str, torch.device] = None
             "--obs-port needs the observability services' port: ROADMAP "
             "Queue 1 item 8")
 
-    dev = resolve_device(device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    total_len = args.prompt_len + args.gen
-    opts = ApplyOptions(attn_impl="cuda")
-
-    params = init_params(cfg, args.seed, dev)
-    pre_fn = make_prefill_step(cfg, opts)
-    dec_fn = make_decode_step(cfg, opts)
-    batch = make_prompts(cfg, args.batch, args.prompt_len, args.seed, dev)
-
-    logits, cache = pre_fn(params, batch)
-    dec_cache = rehome_cache(cfg, cache, args.batch, total_len)
-    del cache
-
-    tokens_out = []
-    sim_time = 0.0
-    next_tok = torch.argmax(logits, dim=-1)[:, None]
-    t0 = time.time()
-    for _ in range(args.gen):
-        if cfg.input_mode == "tokens":
-            dec_batch = {"tokens": next_tok}
-        else:
-            dec_batch = {"embeds": 0.05 * torch.ones(
-                (args.batch, 1, cfg.d_model), device=dev,
-                dtype=getattr(torch, cfg.compute_dtype))}
-        t1 = time.time()
-        logits, dec_cache = dec_fn(params, dec_cache, dec_batch)
-        next_tok = torch.argmax(logits, dim=-1)[:, None]
-        tokens_out.append(next_tok.cpu().numpy())  # waits for the step
-        sim_time += max(time.time() - t1, 1e-5)
-
-    toks = args.gen * args.batch
-    result = {
-        "tokens": toks,
-        "wall_s": round(time.time() - t0, 3),
-        "sim_time_s": round(sim_time, 3),
-        "tok_per_s_sim": round(toks / max(sim_time, 1e-9), 2),
-        "energy_j": 0.0,
-        "final_pcap": None,
-        # the greedy tokens, [batch, gen]: one key beyond the reference's
-        "generated": np.concatenate(tokens_out, axis=1),
-    }
-    if not args.quiet:
-        print({k: v for k, v in result.items() if k != "generated"})
-    return result
+    return serve(cfg, args.batch, args.prompt_len, args.gen, args.seed,
+                 device, args.quiet)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The LM substrate's models; port of `repro.models` (attention blocks
-with dense feed-forward, serving path)."""
+"""The LM substrate's models; port of `repro.models` (attention and
+Mamba blocks with dense or MoE feed-forward, serving path)."""
 from repro_torch.models.model import (  # noqa: F401
     cache_defs,
     decode_step,

@@ -1,14 +1,15 @@
 """Model assembly: embed -> repeated block pattern -> head; port of
-`repro.models.model` for attention blocks with dense feed-forward.
+`repro.models.model` for attention and Mamba blocks with dense or MoE
+feed-forward.
 
-Parameters, KV caches and step inputs are described by ParamDef trees
-with the reference's structure: per-repeat parameters are stacked on a
+Parameters, caches and step inputs are described by ParamDef trees with
+the reference's structure: per-repeat parameters are stacked on a
 leading axis, so a reference parameter tree carries across leaf for leaf
 (`repro_torch.convert.params_from_reference`). The reference's scan over
 repeats is a Python loop here.
 
-Mamba, mLSTM, sLSTM and MoE blocks are not ported yet and raise
-NotImplementedError; so does training (loss, remat).
+mLSTM and sLSTM blocks are not ported yet and raise NotImplementedError;
+so does training (loss, remat).
 """
 from __future__ import annotations
 
@@ -18,33 +19,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import BlockConfig, ModelConfig, ShapeConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba, moe
 from repro_torch.models.layers import (ParamDef, materialize, mlp_apply,
                                        mlp_defs, rms_norm, rms_norm_def,
                                        stack_defs, tree_map)
 from repro_torch.models.types import ApplyOptions
 
-_LATER = {
-    "mamba": "Mamba blocks (with the selective-scan kernel, ROADMAP Queue "
-             "2 item 4)",
-    "mlstm": "mLSTM blocks",
-    "slstm": "sLSTM blocks",
-    "moe": "MoE feed-forward",
-}
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{_LATER.get(what, what)} not ported yet: ROADMAP Queue 1 item 10")
+_LATER = {"mlstm": "mLSTM blocks", "slstm": "sLSTM blocks"}
 
 
 def _check_block(blk: BlockConfig) -> None:
-    if blk.kind != "attn":
-        if blk.kind in _LATER:
-            _not_ported(blk.kind)
+    if blk.kind in _LATER:
+        raise NotImplementedError(
+            f"{_LATER[blk.kind]} not ported yet: ROADMAP Queue 1 item 10")
+    if blk.kind not in ("attn", "mamba"):
         raise ValueError(blk.kind)
-    if blk.ff == "moe":
-        _not_ported("moe")
 
 
 # ---------------------------------------------------------------------------
@@ -54,10 +43,15 @@ def _check_block(blk: BlockConfig) -> None:
 
 def block_defs(cfg: ModelConfig, blk: BlockConfig) -> dict:
     _check_block(blk)
-    d = {"mix": attention.attn_defs(cfg)}
+    if blk.kind == "attn":
+        d = {"mix": attention.attn_defs(cfg)}
+    else:
+        d = {"mix": mamba.mamba_defs(cfg)}
     if blk.ff == "dense":
         d["ff"] = {"ln": rms_norm_def(cfg.d_model, "d_model"),
                    **mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_gated)}
+    elif blk.ff == "moe":
+        d["ff"] = moe.moe_defs(cfg)
     return d
 
 
@@ -87,7 +81,9 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
 def block_cache_defs(cfg: ModelConfig, blk: BlockConfig, batch: int,
                      seq_len: int) -> dict:
     _check_block(blk)
-    return attention.attn_cache_defs(cfg, batch, seq_len)
+    if blk.kind == "attn":
+        return attention.attn_cache_defs(cfg, batch, seq_len)
+    return mamba.mamba_cache_defs(cfg, batch)
 
 
 def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
@@ -122,33 +118,54 @@ def input_defs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _apply_ff(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _apply_ff(cfg: ModelConfig, blk: BlockConfig, p: dict,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (delta, aux)."""
+    if blk.ff == "moe":
+        return moe.moe_apply(cfg, p, x)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    return mlp_apply(p, h, cfg.mlp_gated)
+    return mlp_apply(p, h, cfg.mlp_gated), _zero(x)
 
 
-def _block_apply(cfg, opts, p, x):
-    x = x + attention.attn_apply(cfg, opts, p["mix"], x)
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _block_apply(cfg, opts, blk, p, x):
+    if blk.kind == "attn":
+        x = x + attention.attn_apply(cfg, opts, p["mix"], x)
+    else:
+        x = x + mamba.mamba_apply(cfg, opts, p["mix"], x)
+    aux = _zero(x)
     if "ff" in p:
-        x = x + _apply_ff(cfg, p["ff"], x)
-    return x
+        delta, aux = _apply_ff(cfg, blk, p["ff"], x)
+        x = x + delta
+    return x, aux
 
 
-def _block_apply_prefill(cfg, opts, p, x):
+def _block_apply_prefill(cfg, opts, blk, p, x):
     """Like _block_apply but also returns the block's populated cache."""
-    dx, cache = attention.attn_prefill(cfg, opts, p["mix"], x)
+    if blk.kind == "attn":
+        dx, cache = attention.attn_prefill(cfg, opts, p["mix"], x)
+    else:
+        dx, cache = mamba.mamba_prefill(cfg, opts, p["mix"], x)
     x = x + dx
     if "ff" in p:
-        x = x + _apply_ff(cfg, p["ff"], x)
+        x = x + _apply_ff(cfg, blk, p["ff"], x)[0]
     return x, cache
 
 
-def _block_apply_decode(cfg, opts, p, x, cache, pos):
-    dx, new_cache = attention.attn_decode(cfg, opts, p["mix"], x, cache, pos)
+def _block_apply_decode(cfg, opts, blk, p, x, cache, pos):
+    """The block's cache tensors are updated in place (see
+    `attention.attn_decode` and `mamba.mamba_decode`)."""
+    if blk.kind == "attn":
+        dx, _ = attention.attn_decode(cfg, opts, p["mix"], x, cache, pos)
+    else:
+        dx, _ = mamba.mamba_decode(cfg, opts, p["mix"], x, cache, pos)
     x = x + dx
     if "ff" in p:
-        x = x + _apply_ff(cfg, p["ff"], x)
-    return x, new_cache
+        x = x + _apply_ff(cfg, blk, p["ff"], x)[0]
+    return x
 
 
 def _repeat(stacked, r: int):
@@ -178,13 +195,18 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict
 
 def apply_blocks(cfg: ModelConfig, opts: ApplyOptions, params: dict,
                  x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, the router aux loss summed over the blocks), summed
+    unit by unit as the reference's scan carries it."""
     _check(cfg)
+    aux = _zero(x)
     for r in range(cfg.num_repeats):
         sl = _repeat(params["blocks"], r)
-        for j in range(len(cfg.pattern)):
-            x = _block_apply(cfg, opts, sl[j], x)
-    # no MoE block runs here, so the router's aux loss is 0
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        unit = _zero(x)
+        for j, blk in enumerate(cfg.pattern):
+            x, a = _block_apply(cfg, opts, blk, sl[j], x)
+            unit = unit + a
+        aux = aux + unit
+    return x, aux
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -219,8 +241,8 @@ def prefill(cfg: ModelConfig, opts: ApplyOptions, params: dict,
     for r in range(cfg.num_repeats):
         sl = _repeat(params["blocks"], r)
         caches = []
-        for j in range(len(cfg.pattern)):
-            x, c = _block_apply_prefill(cfg, opts, sl[j], x)
+        for j, blk in enumerate(cfg.pattern):
+            x, c = _block_apply_prefill(cfg, opts, blk, sl[j], x)
             caches.append(c)
         per_rep.append(tuple(caches))
     caches = tree_map(lambda *ts: torch.stack(ts), *per_rep)
@@ -230,16 +252,17 @@ def prefill(cfg: ModelConfig, opts: ApplyOptions, params: dict,
 
 def decode_step(cfg: ModelConfig, opts: ApplyOptions, params: dict,
                 cache: dict, batch: dict) -> Tuple[torch.Tensor, dict]:
-    """One decode step. Returns (logits [B,V], updated cache). The KV
-    tensors of ``cache`` are updated in place (see `attention.attn_decode`);
-    ``pos`` may be an int or a 0-d tensor."""
+    """One decode step. Returns (logits [B,V], updated cache). The tensors
+    of ``cache`` (attention KV, Mamba conv and ssm states) are updated in
+    place, through the per-repeat views of the stacked cache; ``pos`` may
+    be an int or a 0-d tensor."""
     _check(cfg)
     x = _embed_inputs(cfg, params, batch)
     pos = int(cache["pos"])
     for r in range(cfg.num_repeats):
         sl_p = _repeat(params["blocks"], r)
         sl_c = _repeat(cache["blocks"], r)
-        for j in range(len(cfg.pattern)):
-            x, _ = _block_apply_decode(cfg, opts, sl_p[j], x, sl_c[j], pos)
+        for j, blk in enumerate(cfg.pattern):
+            x = _block_apply_decode(cfg, opts, blk, sl_p[j], x, sl_c[j], pos)
     logits = _head(cfg, params, x[:, 0])
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}

@@ -15,6 +15,13 @@ class ApplyOptions:
     #                kernels' "pallas" / "pallas_interpret" in one value)
     attn_impl: str = "blocked"
     block_q: int = 512
+    # Mamba selective-scan implementation (the reference has no such
+    # switch: its Mamba blocks always take the chunked scan):
+    #   "chunked"    the reference's `_mamba_seq`: a log-depth scan inside
+    #                each chunk, a carry across chunks (default)
+    #   "cuda"       the hand-written CUDA selective-scan kernel on a CUDA
+    #                tensor; its plain PyTorch version on a CPU tensor
+    scan_impl: str = "chunked"
     # kept for field parity with the reference; PyTorch runs eagerly, so
     # there is no scan to unroll
     unroll: bool = False

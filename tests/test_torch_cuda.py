@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the closed-loop kernel, flash attention and split-KV decode attention
-(the attention bar is `repro_torch.kernels.attention_cases`), and the
-serving path through them. Every test here needs a CUDA device and
+(the attention bar is `repro_torch.kernels.attention_cases`), the
+selective scan (its bar is `repro_torch.kernels.selective_scan.cases`),
+and the serving paths through them. Every test here needs a CUDA device and
 skips without one; the file imports no jax, so it runs where only torch
 is installed:
 
@@ -31,6 +32,10 @@ from repro_torch.kernels.decode_attention import ref as DR  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as FR  # noqa: E402
+from repro_torch.kernels.selective_scan import cases as SC  # noqa: E402
+from repro_torch.kernels.selective_scan import kernel as SK  # noqa: E402
+from repro_torch.kernels.selective_scan import ops as SO  # noqa: E402
+from repro_torch.kernels.selective_scan import ref as SR  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -216,5 +221,104 @@ def test_serving_path_runs_through_the_kernels(dev):
     f0, d0 = FK.LAUNCHES, DK.LAUNCHES
     got = serve.main(argv, device=dev)["generated"]
     assert (FK.LAUNCHES - f0, DK.LAUNCHES - d0) == (1, 4)
+    want = serve.main(argv, device="cpu")["generated"]
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# selective scan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", SC.SCAN_CASES + SC.SCAN_RAGGED
+                         + [SC.SCAN_SERVE], ids=str)
+def test_scan_kernel_matches_plain_version(dev, case):
+    x, dt, A, Bc, Cc, D, _ = SC.scan_inputs(case, dev)
+    before = SK.LAUNCHES
+    y, h = SK.selective_scan_cuda(x, dt, A, Bc, Cc, D)
+    assert SK.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    yr, hr = SR.selective_scan_ref(x, dt, A, Bc, Cc, D)
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr.float(),
+                               **SC.tolerance(case[4]))
+    torch.testing.assert_close(h, hr, **SC.F32_TOL)
+
+
+@pytest.mark.parametrize("case", [SC.SCAN_STEP, (2, 45, 160, 16, "float32"),
+                                  (1, 1, 64, 4, "bfloat16")], ids=str)
+def test_scan_kernel_continues_from_a_state(dev, case):
+    """h0 read at the start: one decode step at the serving widths, and a
+    longer run, from a non-zero state."""
+    x, dt, A, Bc, Cc, D, h0 = SC.scan_inputs(case, dev, seed=2,
+                                             with_h0=True)
+    y, h = SK.selective_scan_cuda(x, dt, A, Bc, Cc, D, h0)
+    torch.cuda.synchronize()
+    yr, hr = SR.selective_scan_ref(x, dt, A, Bc, Cc, D, h0)
+    torch.testing.assert_close(y.float(), yr.float(),
+                               **SC.tolerance(case[4]))
+    torch.testing.assert_close(h, hr, **SC.F32_TOL)
+
+
+def test_scan_op_on_the_card_matches_the_cpu(dev):
+    """The public op: the kernel on CUDA tensors, the plain version on the
+    same inputs on the CPU (bf16 D and a non-contiguous x are taken)."""
+    case = (2, 70, 96, 16, "float32")
+    x, dt, A, Bc, Cc, D, h0 = SC.scan_inputs(case, dev, with_h0=True)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    before = SK.LAUNCHES
+    y, h = SO.selective_scan(xt, dt, A, Bc, Cc, D.bfloat16(), h0)
+    assert SK.LAUNCHES == before + 1
+    yc, hc = SO.selective_scan(*(t.cpu() for t in (x, dt, A, Bc, Cc)),
+                               D.bfloat16().cpu(), h0.cpu())
+    torch.testing.assert_close(y.cpu(), yc, **SC.F32_TOL)
+    torch.testing.assert_close(h.cpu(), hc, **SC.F32_TOL)
+
+
+def test_scan_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, dt, A, Bc, Cc, D, h0 = SC.scan_inputs((1, 8, 32, 4, "float32"), dev,
+                                             with_h0=True)
+    with pytest.raises(TypeError):
+        SK.selective_scan_cuda(x.double(), dt.double(), A, Bc, Cc, D)
+    with pytest.raises(TypeError):
+        SK.selective_scan_cuda(x, dt.bfloat16(), A, Bc, Cc, D)
+    with pytest.raises(TypeError):
+        SK.selective_scan_cuda(x, dt, A.bfloat16(), Bc, Cc, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        SK.selective_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                               dt, A, Bc, Cc, D)
+    with pytest.raises(ValueError, match="shape"):
+        SK.selective_scan_cuda(x, dt, A, Bc, Cc, D, h0[:, :16])
+    with pytest.raises(ValueError, match="N <= 16"):
+        SK.selective_scan_cuda(x, dt, torch.zeros(32, 17, device=dev),
+                               torch.zeros(1, 8, 17, device=dev),
+                               torch.zeros(1, 8, 17, device=dev), D)
+    with pytest.raises(ValueError):
+        SK.selective_scan_cuda(x, dt, A.cpu(), Bc, Cc, D)
+
+
+def test_refused_scan_launch_raises(dev):
+    """A grid the card refuses (70,000 batch rows > 65,535 blocks on the
+    grid's y axis) is reported by the launch, and the wrapper raises."""
+    x, dt, A, Bc, Cc, D, _ = SC.scan_inputs((70_000, 1, 1, 4, "float32"),
+                                            dev)
+    before = SK.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        SK.selective_scan_cuda(x, dt, A, Bc, Cc, D)
+    assert SK.LAUNCHES == before
+
+
+def test_jamba_serving_path_runs_through_the_kernels(dev):
+    """Reduced jamba (7 Mamba layers and 1 attention layer) served on the
+    card: 7 scan launches in prefill and 7 per generated token, one flash
+    launch for the 1,024-token prefill and one decode launch per token,
+    and the CPU run's greedy tokens."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "jamba-v0.1-52b", "--reduced", "--batch", "2",
+            "--prompt-len", "1024", "--gen", "4", "--quiet"]
+    s0, f0, d0 = SK.LAUNCHES, FK.LAUNCHES, DK.LAUNCHES
+    got = serve.main(argv, device=dev)["generated"]
+    assert (SK.LAUNCHES - s0, FK.LAUNCHES - f0, DK.LAUNCHES - d0) == \
+        (7 + 7 * 4, 1, 4)
     want = serve.main(argv, device="cpu")["generated"]
     np.testing.assert_array_equal(got, want)

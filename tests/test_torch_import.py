@@ -23,7 +23,10 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.kernels.closed_loop.ops, repro_torch.convert, "
             "repro_torch.models, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.decode_attention\n"
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.kernels.selective_scan, "
+            "repro_torch.kernels.selective_scan.cases, "
+            "repro_torch.models.mamba, repro_torch.models.moe\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "

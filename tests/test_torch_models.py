@@ -125,7 +125,9 @@ def test_mlp_apply_matches_jax(gated):
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "starcoder2-3b",
                                   "h2o-danube-3-4b", "llama3-405b",
-                                  "musicgen-medium", "phi-3-vision-4.2b"])
+                                  "musicgen-medium", "phi-3-vision-4.2b",
+                                  "jamba-v0.1-52b", "phi3.5-moe-42b-a6.6b",
+                                  "granite-moe-3b-a800m"])
 def test_param_tree_matches_reference(arch):
     """Same tree, shapes and count as the reference's defs, at full size
     (no weights are made)."""
@@ -280,44 +282,210 @@ def test_embeds_input_mode_matches_jax():
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
 
 
+# Mamba + attention + MoE (jamba at two pattern repeats) and the MoE archs,
+# on both scan routes; the JAX side runs its chunked scan and, for the
+# attention core, its reference path or its Pallas kernels in interpret
+# mode
+HYBRID_CASES = [("jamba-v0.1-52b", 16), ("phi3.5-moe-42b-a6.6b", None),
+                ("granite-moe-3b-a800m", None)]
+
+
+def _hybrid_cfgs(arch, layers):
+    jc, tc = _cfgs(arch)
+    if layers:
+        jc = dataclasses.replace(jc, num_layers=layers)
+        tc = dataclasses.replace(tc, num_layers=layers)
+    return jc, tc
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(p): a for p, a in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("scan_impl", ["chunked", "cuda"])
+@pytest.mark.parametrize("jax_impl", ["reference", "pallas_interpret"])
+@pytest.mark.parametrize("arch,layers", HYBRID_CASES)
+def test_hybrid_and_moe_models_match_jax(arch, layers, jax_impl, scan_impl):
+    """forward (logits and the router aux loss), prefill (logits and every
+    cache leaf, Mamba conv and ssm states included) and three decode
+    steps, on the same parameters."""
+    jc, tc = _hybrid_cfgs(arch, layers)
+    params = jinit(jc, jax.random.PRNGKey(0))
+    tp = params_from_reference(params, "cpu")
+    B, P, GEN = 2, 32, 3
+    tokens = np.random.default_rng(11).integers(
+        0, jc.vocab_size, (B, P + GEN)).astype(np.int32)
+    jo = JOpts(attn_impl=jax_impl, block_q=BLOCK_Q)
+    to = ApplyOptions(attn_impl="cuda", scan_impl=scan_impl, block_q=BLOCK_Q)
+
+    want, waux = jforward(jc, jo, params, {"tokens": jnp.asarray(tokens)})
+    got, gaux = forward(tc, to, tp, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(gaux), float(waux), **TOL)
+    assert float(gaux) > 0.0
+
+    lj, cj = jprefill(jc, jo, params, {"tokens": jnp.asarray(tokens[:, :P])})
+    lt, ct = prefill(tc, to, tp, {"tokens": torch.from_numpy(tokens[:, :P])})
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    jl = _leaves(cj["blocks"])
+    tl = dict(L.tree_leaves_with_path(ct["blocks"]))
+    assert jl.keys() == tl.keys()
+    for path, t in tl.items():
+        np.testing.assert_allclose(t.numpy(), np.asarray(jl[path]), **TOL)
+
+    cj = _jax_pad_cache(jc, cj, B, P + GEN)
+    ct = rehome_cache(tc, ct, B, P + GEN)
+    for j in range(GEN):
+        step = tokens[:, P + j:P + j + 1]
+        lj, cj = jdecode(jc, jo, params, cj, {"tokens": jnp.asarray(step)})
+        lt, ct = decode_step(tc, to, tp, ct, {"tokens": torch.from_numpy(step)})
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    # the caches updated in place are the reference's returned caches
+    jl = _leaves(cj["blocks"])
+    for path, t in L.tree_leaves_with_path(ct["blocks"]):
+        np.testing.assert_allclose(t.numpy(), np.asarray(jl[path]), **TOL)
+
+
+def test_rehome_cache_keeps_each_leaf_dtype():
+    """With a bf16 compute dtype, re-homing casts each leaf to its def's
+    dtype: KV and conv states bf16, the Mamba ssm state float32 (as the
+    reference's ``place``), so prefill's fp32 state is not rounded."""
+    cfg = dataclasses.replace(tcfg.reduced(tcfg.get_config("jamba-v0.1-52b")),
+                              compute_dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = init_params(cfg, 0, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24),
+                           generator=torch.Generator().manual_seed(3))
+    opts = ApplyOptions(attn_impl="cuda", scan_impl="cuda")
+    _, cache = prefill(cfg, opts, params, {"tokens": tokens})
+    ssm = {p: t for p, t in L.tree_leaves_with_path(cache["blocks"])
+           if p.endswith("['ssm']")}
+    assert ssm and all(t.dtype == torch.float32 for t in ssm.values())
+    home = rehome_cache(cfg, cache, 2, 30)
+    defs = dict(L.tree_leaves_with_path(M.cache_defs(cfg, 2, 30)["blocks"],
+                                        L.is_def))
+    leaves = dict(L.tree_leaves_with_path(home["blocks"]))
+    assert leaves.keys() == defs.keys()
+    for path, t in leaves.items():
+        assert t.dtype == getattr(torch, defs[path].dtype), path
+        assert tuple(t.shape) == defs[path].shape, path
+    for path, t in ssm.items():
+        assert torch.equal(leaves[path], t), path  # not rounded
+    # the KV tensors are zero-padded from 24 to 30 positions
+    k = next(t for p, t in leaves.items() if p.endswith("['k']"))
+    assert k.shape[2] == 30 and not k[:, :, 24:].any()
+    lt, _ = decode_step(cfg, opts, params, home,
+                        {"tokens": tokens[:, -1:]})
+    assert bool(torch.isfinite(lt.float()).all())
+
+
+def test_cache_from_reference_carries_mamba_states():
+    """jamba's reference cache (bf16 compute: conv bf16, ssm float32)
+    carries across with each leaf's dtype, and decodes like the
+    reference."""
+    jc, tc = _cfgs("jamba-v0.1-52b")
+    jc = dataclasses.replace(jc, compute_dtype="bfloat16",
+                             param_dtype="bfloat16")
+    tc = dataclasses.replace(tc, compute_dtype="bfloat16",
+                             param_dtype="bfloat16")
+    params = jinit(jc, jax.random.PRNGKey(5))
+    tokens = np.random.default_rng(12).integers(
+        0, jc.vocab_size, (2, 21)).astype(np.int32)
+    jo = JOpts(attn_impl="reference")
+    _, cj = jprefill(jc, jo, params, {"tokens": jnp.asarray(tokens[:, :20])})
+    cj = _jax_pad_cache(jc, cj, 2, 21)
+    ct = cache_from_reference(cj, "cpu")
+    jl = _leaves(cj["blocks"])
+    for path, t in L.tree_leaves_with_path(ct["blocks"]):
+        want = "float32" if path.endswith("['ssm']") else "bfloat16"
+        assert str(jl[path].dtype) == want and t.dtype == getattr(torch,
+                                                                 want)
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(jl[path], np.float32))
+    step = tokens[:, 20:]
+    lj, _ = jdecode(jc, jo, params, cj, {"tokens": jnp.asarray(step)})
+    lt, _ = decode_step(tc, ApplyOptions(attn_impl="cuda", scan_impl="cuda"),
+                        params_from_reference(params, "cpu"), ct,
+                        {"tokens": torch.from_numpy(step)})
+    # bf16 activations: both sides round to bf16 at other places
+    np.testing.assert_allclose(lt.float().numpy(),
+                               np.asarray(lj, np.float32), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_params_from_reference_carries_mamba_and_moe_leaves():
+    """jamba's parameter tree (mamba conv_w, a_log, ..., MoE router and
+    experts), bf16 leaves bf16 and float32 leaves float32."""
+    jc, _ = _cfgs("jamba-v0.1-52b")
+    params = jinit(dataclasses.replace(jc, param_dtype="bfloat16"),
+                   jax.random.PRNGKey(0))
+    params["final_ln"] = params["final_ln"].astype(jnp.float32)
+    tp = params_from_reference(params, "cpu")
+    tflat = dict(L.tree_leaves_with_path(tp))
+    jflat = _leaves(params)
+    assert jflat.keys() == tflat.keys()
+    names = {p.split("'")[-2] for p in tflat}
+    assert {"conv_w", "a_log", "d_skip", "router", "w_up", "w_gate",
+            "w_down", "in_proj", "x_proj", "dt_w"} <= names
+    for path, t in tflat.items():
+        want = torch.float32 if path == "['final_ln']" else torch.bfloat16
+        assert t.dtype == want, path
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(jflat[path], np.float32))
+
+
 # ---------------------------------------------------------------------------
 # the port alone
 # ---------------------------------------------------------------------------
 
 
+# MoE archs: capacity drops depend on the dispatch group, which holds all
+# B * S tokens in forward, the prompt in prefill and the B new tokens in
+# decode, so a dropped token can differ; tests/test_models.py holds jamba
+# to 5e-3 for this reason, and so does this test
 @pytest.mark.parametrize("arch,P", [("qwen3-8b", 32), ("starcoder2-3b", 32),
                                     ("h2o-danube-3-4b", 32),
-                                    ("h2o-danube-3-4b", 48)])
+                                    ("h2o-danube-3-4b", 48),
+                                    ("jamba-v0.1-52b", 32),
+                                    ("phi3.5-moe-42b-a6.6b", 32)])
 def test_decode_matches_forward(arch, P):
     """tests/test_models.py's property: prefill(P) + decode reproduces the
     full-sequence logits at each decoded position (for the window arch
     also with the ring wrapped)."""
     cfg = tcfg.reduced(tcfg.get_config(arch))
+    tol = 5e-3 if cfg.moe else 2e-5
     params = init_params(cfg, 0, "cpu")
     B, GEN = 2, 4
     tokens = torch.randint(0, cfg.vocab_size, (B, P + GEN),
                            generator=torch.Generator().manual_seed(1))
-    opts = ApplyOptions(attn_impl="cuda", block_q=BLOCK_Q)
+    opts = ApplyOptions(attn_impl="cuda", scan_impl="cuda", block_q=BLOCK_Q)
     full, _ = forward(cfg, opts, params, {"tokens": tokens})
     logits, cache = prefill(cfg, opts, params, {"tokens": tokens[:, :P]})
     cache = rehome_cache(cfg, cache, B, P + GEN)
-    torch.testing.assert_close(logits, full[:, P - 1], atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(logits, full[:, P - 1], atol=tol, rtol=tol)
     for j in range(GEN - 1):
         logits, cache = decode_step(cfg, opts, params, cache,
                                     {"tokens": tokens[:, P + j:P + j + 1]})
-        torch.testing.assert_close(logits, full[:, P + j], atol=2e-5,
-                                   rtol=2e-5)
+        torch.testing.assert_close(logits, full[:, P + j], atol=tol,
+                                   rtol=tol)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m",
-                                  "phi3.5-moe-42b-a6.6b",
-                                  "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["xlstm-350m"])
 def test_unported_blocks_raise(arch):
     cfg = tcfg.reduced(tcfg.get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         init_params(cfg, 0, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.cache_defs(cfg, 1, 8)
+
+
+def test_unknown_scan_impl_raises():
+    cfg = tcfg.reduced(tcfg.get_config("jamba-v0.1-52b"))
+    params = init_params(cfg, 0, "cpu")
+    with pytest.raises(ValueError, match="scan_impl"):
+        forward(cfg, ApplyOptions(scan_impl="pallas"), params,
+                {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
 
 
 def test_unknown_attn_impl_raises():

@@ -71,6 +71,26 @@ def test_the_widest_loop_is_the_main_one():
     assert sass.loop_instructions(instrs) == 5
 
 
+def test_the_innermost_loop_holding_an_opcode():
+    """A tile loop around a step loop: with ``containing`` the step loop,
+    the narrowest one whose body holds the opcode, is counted."""
+    nest = listing(
+        "MOV R0, RZ",              # 0x00
+        "LDG.E R1, desc[UR4][R2.64]",  # 0x10 tile head
+        "STS [R3], R1",            # 0x20
+        "MUFU.EX2 R4, R4",         # 0x30 step head
+        "FMUL R5, R4, R5",         # 0x40
+        "@P0 BRA 0x30",            # 0x50 step backward branch
+        "BAR.SYNC.DEFER_BLOCKING 0x0",  # 0x60
+        "@P1 BRA 0x10",            # 0x70 tile backward branch
+    )
+    (instrs,) = sass.functions(nest).values()
+    assert sass.loop_instructions(instrs) == 7
+    assert sass.loop_instructions(instrs, containing="MUFU.EX2") == 3
+    with pytest.raises(ValueError, match="HMMA"):
+        sass.loop_instructions(instrs, containing="HMMA")
+
+
 def test_a_function_without_a_loop_is_refused():
     (instrs,) = sass.functions(listing("MOV R0, RZ", "EXIT")).values()
     with pytest.raises(ValueError, match="no loop"):

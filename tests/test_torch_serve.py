@@ -6,6 +6,8 @@ Greedy tokens must be equal: float32 logits agree to ~1e-7 (see
 tests/test_torch_models.py), far below the gaps between the top logits
 of these random-weight models.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -25,11 +27,15 @@ from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.layers import tree_map  # noqa: E402
 
 
-def _jax_serve(arch, batch, prompt_len, gen, seed):
+def _jax_serve(arch, batch, prompt_len, gen, seed, layers=None):
     """serve.py's loop in the JAX package (attn_impl "reference", as its
-    CLI), on the port's weights and prompts for ``seed``."""
+    CLI), on the port's weights and prompts for ``seed``; ``layers`` cuts
+    or extends the reduced config's depth."""
     cfg = jcfg.reduced(jcfg.get_config(arch))
     tc = tcfg.reduced(tcfg.get_config(arch))
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        tc = dataclasses.replace(tc, num_layers=layers)
     params = tree_map(lambda t: jnp.asarray(t.numpy()),
                       init_params(tc, seed, "cpu"))
     prompts = {k: jnp.asarray(v.float().numpy() if v.is_floating_point()
@@ -67,6 +73,8 @@ def _jax_serve(arch, batch, prompt_len, gen, seed):
     ("starcoder2-3b", 24),
     ("h2o-danube-3-4b", 40),   # prompt > window 32: ring roll + wrap
     ("musicgen-medium", 16),   # embeds input mode
+    ("jamba-v0.1-52b", 40),    # Mamba + attention + MoE: the selective scan
+    ("phi3.5-moe-42b-a6.6b", 24),
 ])
 def test_serve_tokens_match_jax_loop(arch, prompt_len):
     batch, gen = 2, 6
@@ -79,6 +87,24 @@ def test_serve_tokens_match_jax_loop(arch, prompt_len):
     assert res["generated"].shape == (batch, gen)
     np.testing.assert_array_equal(
         res["generated"], _jax_serve(arch, batch, prompt_len, gen, 0))
+
+
+def test_serve_takes_a_given_config():
+    """`serve` drives a ModelConfig directly: jamba at two pattern repeats
+    (the decode cache updated in place through both repeats' views) gives
+    the reference's tokens; `main` is that call after its flags."""
+    cfg = dataclasses.replace(tcfg.reduced(tcfg.get_config(
+        "jamba-v0.1-52b")), num_layers=16)
+    a = serve.serve(cfg, 2, 20, 4, seed=0, device="cpu")
+    assert a["generated"].shape == (2, 4) and a["tokens"] == 8
+    np.testing.assert_array_equal(
+        a["generated"], _jax_serve("jamba-v0.1-52b", 2, 20, 4, 0, layers=16))
+    b = serve.main(["--arch", "jamba-v0.1-52b", "--reduced", "--batch", "2",
+                    "--prompt-len", "20", "--gen", "4", "--quiet"],
+                   device="cpu")
+    c = serve.serve(tcfg.reduced(tcfg.get_config("jamba-v0.1-52b")), 2, 20,
+                    4, seed=0, device="cpu")
+    np.testing.assert_array_equal(b["generated"], c["generated"])
 
 
 def test_serve_is_seeded():
