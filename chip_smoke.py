@@ -20,20 +20,25 @@ Phases, each of which fails the run if a check fails:
    (101,376 runs, summary mode), the kernel's output against phase 3's
    sweep, and timings with CUDA events (warm-up, median of 5 or 7): the
    kernel beside its bound, the plain version, the noise draw;
-6. the flash-attention and split-KV decode kernels against their plain
-   versions on the card (`attention_cases`: the reference tests' shapes,
-   head_dim 120, ragged lengths, narrow windows, the serving shapes);
+6. the flash-attention kernels (bf16 on the tensor cores, float32 on the
+   SIMT route, as `flash_attention.kernel.route` sends them) and the
+   split-KV decode kernels with their combine against their plain versions
+   on the card (`attention_cases`: the reference tests' shapes, head_dim
+   120, ragged lengths, narrow windows, the serving shapes);
 7. the LM serving path at full width: `repro_torch.launch.serve.main`
    on qwen3-8b (36 layers, d_model 4096, vocab 151,936, bf16, random
    weights from seed 0), batch 8, 1,024-token prompts, 32 tokens,
-   with the attention kernels' launch counts read around it; then the
+   with the attention kernels' launch counts (and the flash kernel's by
+   route: all on the tensor cores) read around it; then the
    same weights' prefill and teacher-forced decode logits through the
    kernels against the plain attention path, and prefill + decode
    against `forward` at full width with 2 layers;
 8. timings with CUDA events: prefill and one decode step at full width,
-   and each attention kernel at its serving shape beside its bound, its
-   plain version and `scaled_dot_product_attention` (the library
-   yardstick; the port never calls it); then qwen3-8b's weights are freed;
+   and each attention kernel at its serving shape (and the float32 flash
+   route) beside its bound, its plain version and
+   `scaled_dot_product_attention` (the library yardstick; the port never
+   calls it), as device time per call and as time per call with the
+   host's enqueue; then qwen3-8b's weights are freed;
 9. the selective-scan kernel against its plain version on the card
    (`selective_scan.cases`: the reference tests' shapes and bf16 bucket,
    a ragged state size, one decode step from a non-zero state, the jamba
@@ -46,6 +51,11 @@ Phases, each of which fails the run if a check fails:
    block at full width in float32, kernel route against chunked route;
    timings of prefill, a decode step and the scan kernel beside its bound
    and plain version (no library call computes the scan).
+
+The set-up also reads the built SASS: the bf16 flash kernel must hold
+warpgroup products (HGMMA) and TMA loads (UTMALDG), the decode kernels
+must copy the cache with 16-byte loads only (LDGSTS ... .128), and the
+bf16 one must multiply on the tensor cores (HMMA).
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -85,9 +95,10 @@ TRACE_KERNEL = "closed_loop_kernelIfLb1E"
 EPS_GRID = [round(0.05 * i, 2) for i in range(11)]
 
 # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet); the attention
-# kernels' inputs are bf16 on the serving path, so their operation bound
-# is taken at this rate. FP32_PER_S is the rate of the float32 FMA path
-# these first kernels use instead of the tensor cores.
+# kernels' inputs are bf16 on the serving path, where both run on the
+# tensor cores, so their operation bound is taken at this rate.
+# FP32_PER_S is the float32 rate outside the tensor cores, the floor of
+# the flash kernel's float32 (SIMT) route.
 BF16_PER_S = 989e12
 FP32_PER_S = 67e12
 # the serving run of phase 7: qwen3-8b at full width and depth, nothing cut
@@ -96,8 +107,9 @@ SERVE_ARGV = ["--arch", "qwen3-8b", "--batch", "8", "--prompt-len", "1024",
 # bf16 logits of the kernel path against the plain path: relative L2
 # error. bf16 keeps 8 bits (unit roundoff 3.9e-3); 36 layers of
 # independent roundings in the residual stream add up to ~6x that, and
-# the kernels keep probabilities in float32 where the plain path rounds
-# them to bf16.
+# the two paths round at different places (the flash kernel rounds its
+# unnormalised probabilities to bf16, the plain path its normalised ones;
+# the decode kernel keeps 16 bits of them, the plain path 8).
 LOGITS_REL_TOL = 0.05
 # jamba (phase 10) in bf16. Its MoE router makes the error per step
 # bimodal: most steps read the bf16 floor (the two plain paths 8.5e-3
@@ -160,6 +172,35 @@ def rel_err(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def hopper_paths(wgmma_lib, decode_lib) -> None:
+    """The built SASS of the attention kernels: the bf16 flash kernel (both
+    head-dim instances) issues warpgroup products (HGMMA) and TMA loads
+    (UTMALDG); the decode kernels (bf16 and float32 at hd 128) copy the
+    cache with 16-byte loads only (LDGSTS ... .128), and the bf16 one
+    multiplies on the tensor cores (HMMA)."""
+    from repro_torch.kernels import sass
+    for hdp in (64, 128):
+        ops = sass.opcodes(sass.kernel_instructions(
+            wgmma_lib, f"flash_fwd_wgmma_kernelILi{hdp}E"))
+        hgmma = sum(n for op, n in ops.items() if op.startswith("HGMMA."))
+        tma = sum(n for op, n in ops.items() if op.startswith("UTMALDG."))
+        check(hgmma > 0 and tma > 0, f"flash wgmma kernel (hd <= {hdp}): "
+              f"{hgmma} HGMMA, {tma} UTMALDG")
+        print(f"[setup] flash_fwd_wgmma_kernel<{hdp}> SASS: {hgmma} HGMMA ("
+              + ", ".join(sorted(op for op in ops if op.startswith("HGMMA.")))
+              + f"), {tma} UTMALDG")
+    for part in ("decode_attention_mma_kernelILi128E",
+                 "decode_attention_kernelIfLi128ELi4E"):
+        ops = sass.opcodes(sass.kernel_instructions(decode_lib, part))
+        copies = {op: n for op, n in ops.items() if op.startswith("LDGSTS")}
+        check(copies and all(op.endswith(".128") for op in copies),
+              f"{part}: cache copies {copies}")
+        hmma = sum(n for op, n in ops.items() if op.startswith("HMMA."))
+        if "mma" in part:
+            check(hmma > 0, f"{part}: no HMMA")
+        print(f"[setup] {part} SASS: cache copies {copies}; {hmma} HMMA")
+
+
 def attention_parity(dev) -> dict:
     """Phase 6: both attention kernels against their plain versions on
     the card, at `attention_cases`' shapes; returns the largest
@@ -177,7 +218,13 @@ def attention_parity(dev) -> dict:
     for case in AC.FLASH_CASES + [AC.FLASH_SERVE, AC.FLASH_SERVE_F32]:
         causal, window, dtype = case[5:]
         q, k, v = AC.flash_inputs(case, dev)
+        path = FK.route(q.dtype, q.shape[-1])
+        check(path == ("wgmma" if dtype == "bfloat16" else "simt"),
+              f"flash {case} routed to {path}")
+        before = FK.ROUTE_LAUNCHES[path]
         got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        check(FK.ROUTE_LAUNCHES[path] == before + 1, f"flash {case}: the "
+              f"{path} count did not move")
         torch.cuda.synchronize()
         want = FR.attention_ref(q, k, v, causal=causal, window=window)
         err = float((got.float() - want.float()).abs().max())
@@ -185,18 +232,21 @@ def attention_parity(dev) -> dict:
                              **AC.tolerance(dtype)),
               f"flash {case}: max |kernel - plain| = {err}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        print(f"[parity] flash_attention {case}: max |kernel - plain| = "
-              f"{err:.3e}")
+        print(f"[parity] flash_attention {case} ({path}): max |kernel - "
+              f"plain| = {err:.3e}")
     # the bf16 serving shape once more, row by row against the float32
-    # plain version on the same inputs; a kernel that lost one KV tile
-    # (kBQ = 64 query rows, kBK = 32 keys per tile) for the last query
-    # tile reads what `AC.drop_kv_tile` gives
+    # plain version on the same inputs, beside the plain version's own bf16
+    # reading; a kernel that lost 32 keys for the last 64 query rows (a
+    # quarter of one of the tensor-core kernel's 128-key tiles, for half of
+    # one warpgroup's rows) reads what `AC.drop_kv_tile` gives
     causal, window = AC.FLASH_SERVE[5:7]
     q, k, v = AC.flash_inputs(AC.FLASH_SERVE, dev)
     got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
     ref32 = FR.attention_ref(q.float(), k.float(), v.float(),
                              causal=causal, window=window)
     row = AC.row_rel_err(got, ref32)
+    plain_row = AC.row_rel_err(FR.attention_ref(q, k, v, causal=causal,
+                                                window=window), ref32)
     S = q.shape[1]
     last = slice(S - 64, S)
     faults = {"its last KV tile": slice(S - 32, S),
@@ -207,7 +257,8 @@ def attention_parity(dev) -> dict:
     del ref32
     print(f"[parity] flash_attention {AC.FLASH_SERVE}: largest row "
           f"relative L2 against float32 on the same inputs {row:.4e} "
-          f"(bar {AC.ROW_REL_BAR:.1e}); a kernel that drops, for the last "
+          f"(bar {AC.ROW_REL_BAR:.1e}; the plain version in bf16 reads "
+          f"{plain_row:.4e}); a kernel that drops, for the last "
           f"64 query rows, " + "; ".join(
               f"{n} reads {r:.4e}" for n, r in reads.items()))
     check(row <= AC.ROW_REL_BAR,
@@ -217,20 +268,22 @@ def attention_parity(dev) -> dict:
           f"the row bar {AC.ROW_REL_BAR} does not separate a dropped KV "
           f"tile: {reads}")
     errs["flash_row_rel"] = row
+    errs["flash_plain_row_rel"] = plain_row
     errs["flash_fault_row_rel"] = min(reads.values())
     for case in AC.DECODE_CASES + [AC.DECODE_SERVE]:
         q, k, v, k_pos, pos, chunk = AC.decode_inputs(case, dev)
         chunk = chunk or DK.default_chunk(q.shape[0], k.shape[2],
                                           k.shape[1])
-        part = DK.decode_partials_cuda(q, k, v, k_pos, pos, chunk)
+        got, part = DK.decode_attention_cuda(q, k, v, k_pos, pos, chunk)
         torch.cuda.synchronize()
         plain = DR.decode_partials_ref(q, k, v, k_pos, pos, chunk)
         # float32 partials whatever the input type: summation order only
+        # (the bf16 kernel keeps P as two bf16 parts, 2^-18 of each p)
         for name, a, b, atol in zip(("m", "l", "acc"), part, plain,
                                     (1e-5, 1e-4, 1e-4)):
             check(torch.allclose(a, b, atol=atol, rtol=1e-5),
                   f"decode {case}: partial {name}")
-        got, want = DO.combine(*part, q.dtype), DO.combine(*plain, q.dtype)
+        want = DO.combine(*plain, q.dtype)
         oracle = DR.decode_attention_ref(q, k, v, k_pos, pos)
         tol = AC.tolerance(case[-1])
         check(torch.allclose(got.float(), want.float(), **tol)
@@ -239,7 +292,8 @@ def attention_parity(dev) -> dict:
         err = float((got.float() - want.float()).abs().max())
         errs["decode_attention"] = max(errs["decode_attention"], err)
         print(f"[parity] decode_attention {case} chunk {chunk}: max "
-              f"|kernel - plain| = {err:.3e} (output), partials within "
+              f"|kernel - plain| = {err:.3e} (output, the kernels' combine "
+              f"against `combine` of the plain partials), partials within "
               f"1e-4")
     print(f"[parity] attention kernels agree with their plain versions "
           f"at {len(AC.FLASH_CASES) + len(AC.DECODE_CASES) + 3} shapes "
@@ -410,14 +464,18 @@ def serving_path(dev):
     # count every call of a plain path: the serving run makes none
     with counting_plain_calls() as plain:
         FK.LAUNCHES, DK.LAUNCHES = 0, 0
+        FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
         t0 = time.perf_counter()
         res = serve.main(SERVE_ARGV)
         wall = time.perf_counter() - t0
         launches = {"flash_attention": FK.LAUNCHES,
                     "decode_attention": DK.LAUNCHES}
+        routes = dict(FK.ROUTE_LAUNCHES)
     L = cfg.num_layers
     check(launches == {"flash_attention": L, "decode_attention": L * GEN},
           f"serving launches {launches}, expected {L} and {L * GEN}")
+    check(routes == {"wgmma": L, "simt": 0}, f"flash launches by route "
+          f"{routes}: every prefill layer must take the tensor-core kernel")
     check(plain[0] == 0, f"serving path called a plain version "
           f"{plain[0]} times")
     gen = res["generated"]
@@ -427,8 +485,10 @@ def serving_path(dev):
           f"{cfg.param_count() / 1e9:.3f} B parameters, bf16), batch {B}, "
           f"prompt {P}, {GEN} tokens: main() {wall:.2f} s wall (weights, "
           f"prefill, decode); decode loop {res['wall_s']} s, "
-          f"{res['tok_per_s_sim']} tok/s; launches flash {L}, decode "
-          f"{L * GEN}; plain-version calls 0; peak device memory "
+          f"{res['tok_per_s_sim']} tok/s; launches flash {L} (by route: "
+          f"wgmma {routes['wgmma']}, simt {routes['simt']}), decode "
+          f"{L * GEN} (one partials and one combine kernel each); "
+          f"plain-version calls 0; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # the same weights and prompts through three paths: the kernels, the
@@ -492,7 +552,8 @@ def device_breakdown(fn, label: str) -> None:
                 continue
             name = ev.name.lower()
             fam = ("flash_attention kernel" if "flash_fwd" in name else
-                   "decode_attention kernel" if "decode_partials" in name
+                   "decode_attention kernels" if "decode_attention" in name
+                   or "decode_combine" in name
                    else "selective_scan kernel" if "selective_scan" in name
                    else "matmul" if any(w in name for w in (
                        "gemm", "cutlass", "xmma", "nvjet", "sm90"))
@@ -528,6 +589,7 @@ def attention_timings(dev, serving, errs) -> list:
     from repro_torch.kernels.decode_attention import ref as DR
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.timing import device_ms, in_turns
     from repro_torch.launch import serve
     from repro_torch.models import ApplyOptions, decode_step, prefill
 
@@ -557,15 +619,27 @@ def attention_timings(dev, serving, errs) -> list:
           f"({8 / dec_ms * 1e3:.1f} tok/s)")
 
     rows = []
-    # flash attention, one prefill layer
+    # flash attention, one prefill layer: the tensor-core kernel (bf16, the
+    # serving path's) and SDPA in turns, then the float32 SIMT route
     B, S, H, K, hd = AC.FLASH_SERVE[:5]
     q, k, v = AC.flash_inputs(AC.FLASH_SERVE, dev)
-    f_ms = cuda_ms(lambda: FK.flash_attention_cuda(q, k, v), reps=20,
-                   warmup=3)
-    f_plain = cuda_ms(lambda: FR.attention_ref(q, k, v), reps=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20, warmup=3)
+
+    def flash_call():
+        FK.flash_attention_cuda(q, k, v)
+
+    def flash_lib():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+
+    f_ms, f_lib = in_turns(flash_call, flash_lib)
+    f_call = cuda_ms(flash_call, reps=20, warmup=3)
+    f_lib_call = cuda_ms(flash_lib, reps=20, warmup=3)
+    f_plain = cuda_ms(lambda: FR.attention_ref(q, k, v), reps=5, warmup=1)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    f32_ms = device_ms(lambda: FK.flash_attention_cuda(q32, k32, v32),
+                       reps=5, warmup=1)
+    del q32, k32, v32
     f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     # causal: each row attends to its own prefix, S (S + 1) / 2 pairs, and
     # each pair costs 2 hd flops in Q K^T and 2 hd in P V
@@ -573,18 +647,25 @@ def attention_timings(dev, serving, errs) -> list:
     f_bytes_ms = f_bytes / HBM_BYTES_PER_S * 1e3
     f_ops_ms = f_flops / BF16_PER_S * 1e3
     f_bound = max(f_bytes_ms, f_ops_ms)
-    print(f"[time] flash_attention kernel {AC.FLASH_SERVE}: {f_ms:.4f} ms; "
-          f"bound {f_bound:.4f} ms by "
+    f32_bound = max(2 * f_bytes_ms, f_flops / FP32_PER_S * 1e3)
+    print(f"[time] flash_attention tensor-core kernel {AC.FLASH_SERVE}: "
+          f"{f_ms:.4f} ms on the card ({f_call:.4f} ms per call with the "
+          f"host's enqueue); bound {f_bound:.4f} ms by "
           f"{'operations' if f_ops_ms >= f_bytes_ms else 'bytes'} "
           f"({f_flops:.4g} flop at the bf16 tensor rate {f_ops_ms:.4f} ms; "
-          f"{f_bytes / 1e6:.1f} MB {f_bytes_ms:.4f} ms; on the fp32 path "
-          f"the kernel uses, {f_flops / FP32_PER_S * 1e3:.4f} ms); "
+          f"{f_bytes / 1e6:.1f} MB {f_bytes_ms:.4f} ms); "
+          f"{100 * f_bound / f_ms:.1f}% of the bound, "
           f"{f_flops / f_ms / 1e9:.1f} TFLOP/s; plain version "
-          f"{f_plain:.3f} ms; scaled_dot_product_attention {f_lib:.4f} ms")
+          f"{f_plain:.3f} ms; scaled_dot_product_attention {f_lib:.4f} ms "
+          f"({f_lib_call:.4f} ms per call); kernel / SDPA "
+          f"{f_ms / f_lib:.3f}")
+    print(f"[time] flash_attention SIMT route, float32 at the same shape: "
+          f"{f32_ms:.4f} ms on the card; its floor {f32_bound:.4f} ms (the "
+          f"flops at the float32 rate outside the tensor cores)")
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
         "launches": launches["flash_attention"],
         "max_abs_err": errs["flash_attention"], "ms": f_ms,
@@ -593,53 +674,55 @@ def attention_timings(dev, serving, errs) -> list:
         "library_ms": f_lib})
     del q, k, v, qt, kt, vt
 
-    # split-KV decode, one decode layer; four caches in turn so that each
-    # launch finds its 34.6 MB cold in the 50 MB L2, as a layer does
+    # split-KV decode, one decode layer (partials and combine, one call);
+    # four caches in turn so that each call finds its 34.6 MB cold in the
+    # 50 MB L2, as a layer does
     B, T, H, K, hd, pos = AC.DECODE_SERVE[:6]
     sets = [AC.decode_inputs(AC.DECODE_SERVE, dev, seed=i) for i in range(4)]
     q, _, _, k_pos, _, _ = sets[0]
     chunk = DK.default_chunk(B, K, T)
     ring = itertools.cycle(sets)
 
-    def kernel_call():
+    def decode_call():
         qq, kk, vv, kp, _, _ = next(ring)
-        DK.decode_partials_cuda(qq, kk, vv, kp, pos, chunk)
-
-    def op_call():
-        qq, kk, vv, kp, _, _ = next(ring)
-        DO.decode_attention(qq, kk, vv, kp, pos, block_k=chunk)
+        DK.decode_attention_cuda(qq, kk, vv, kp, pos, chunk)
 
     lib_sets = [(qq[:, :, None], kk.transpose(1, 2).contiguous(),
                  vv.transpose(1, 2).contiguous())
                 for qq, kk, vv, _, _, _ in sets]
     lib_ring = itertools.cycle(lib_sets)
 
-    def lib_call():
+    def decode_lib():
         qq, kk, vv = next(lib_ring)
         F.scaled_dot_product_attention(qq, kk, vv, enable_gqa=True)
 
-    d_ms = cuda_ms(kernel_call, reps=40, warmup=4)
-    d_op = cuda_ms(op_call, reps=40, warmup=4)
-    d_plain = cuda_ms(lambda: DR.decode_partials_ref(*sets[0][:4], pos,
-                                                     chunk), reps=10)
-    d_lib = cuda_ms(lib_call, reps=40, warmup=4)
+    d_ms, d_lib = in_turns(decode_call, decode_lib, reps=40, warmup=4)
+    d_call = cuda_ms(decode_call, reps=40, warmup=4)
+    d_lib_call = cuda_ms(decode_lib, reps=40, warmup=4)
+    d_plain = cuda_ms(lambda: DO.combine(*DR.decode_partials_ref(
+        *sets[0][:4], pos, chunk), q.dtype), reps=10)
     k0 = sets[0][1]
     n_split = -(-T // chunk)
     live = int((k_pos >= 0).sum())  # every slot is live at pos 1055
-    d_bytes = (q.numel() * q.element_size() + 2 * B * live * K * hd
+    # q, the live K and V rows and k_pos read once; the partials and o
+    # written once
+    d_bytes = (2 * q.numel() * q.element_size() + 2 * B * live * K * hd
                * k0.element_size() + k_pos.numel() * 4
                + B * H * n_split * (hd + 2) * 4)
     d_flops = 4 * B * H * live * hd
     d_bytes_ms = d_bytes / HBM_BYTES_PER_S * 1e3
     d_ops_ms = d_flops / BF16_PER_S * 1e3
     d_bound = max(d_bytes_ms, d_ops_ms)
-    print(f"[time] decode_attention kernel {AC.DECODE_SERVE}, {n_split} "
-          f"splits of {chunk}: {d_ms:.4f} ms (with the combine "
-          f"{d_op:.4f} ms); bound {d_bound:.4f} ms by "
+    print(f"[time] decode_attention kernels {AC.DECODE_SERVE}, {n_split} "
+          f"splits of {chunk}, partials and combine: {d_ms:.4f} ms on the "
+          f"card ({d_call:.4f} ms per call with the host's enqueue); bound "
+          f"{d_bound:.4f} ms by "
           f"{'bytes' if d_bytes_ms >= d_ops_ms else 'operations'} "
           f"({d_bytes / 1e6:.2f} MB, {d_bytes / d_ms / 1e6:.1f} GB/s "
-          f"achieved); plain version {d_plain:.3f} ms; "
-          f"scaled_dot_product_attention {d_lib:.4f} ms")
+          f"achieved); {100 * d_bound / d_ms:.1f}% of the bound; plain "
+          f"version {d_plain:.3f} ms; scaled_dot_product_attention "
+          f"{d_lib:.4f} ms ({d_lib_call:.4f} ms per call); kernels / SDPA "
+          f"{d_ms / d_lib:.3f}")
     rows.append({
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/decode_attention/csrc/"
@@ -721,14 +804,18 @@ def jamba_serving(dev, scan_err, scan_lib) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with counting_plain_calls() as plain:
         SK.LAUNCHES, FK.LAUNCHES, DK.LAUNCHES = 0, 0, 0
+        FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
         t0 = time.perf_counter()
         res = serve.serve(cfg, B, P, GEN, seed=0, device=dev)
         wall = time.perf_counter() - t0
         launches = {"selective_scan": SK.LAUNCHES,
                     "flash_attention": FK.LAUNCHES,
                     "decode_attention": DK.LAUNCHES}
+        routes = dict(FK.ROUTE_LAUNCHES)
     check(launches == want, f"jamba serving launches {launches}, expected "
           f"{want}")
+    check(routes == {"wgmma": n_attn, "simt": 0}, f"jamba flash launches "
+          f"by route {routes}: the prefill must take the tensor-core kernel")
     check(plain[0] == 0, f"jamba serving path called a plain version "
           f"{plain[0]} times")
     gen = res["generated"]
@@ -741,6 +828,8 @@ def jamba_serving(dev, scan_err, scan_lib) -> dict:
           f"prefill, decode); decode loop {res['wall_s']} s, "
           f"{res['tok_per_s_sim']} tok/s; launches " + ", ".join(
               f"{k} {v}" for k, v in launches.items())
+          + f" (flash by route: wgmma {routes['wgmma']}, simt "
+          f"{routes['simt']})"
           + f"; plain-version calls 0; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -886,13 +975,15 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.selective_scan import kernel as SK
     t0 = time.perf_counter()
-    lib, *other_libs = _build.build_all([K.SOURCE, FK.SOURCE, DK.SOURCE,
+    lib, *other_libs = _build.build_all([K.SOURCE, FK.SOURCE,
+                                         FK.WGMMA_SOURCE, DK.SOURCE,
                                          SK.SOURCE])
-    scan_lib = other_libs[-1]
+    _, wgmma_lib, decode_lib, scan_lib = other_libs
     print(f"[setup] built {lib.relative_to(ROOT)}, "
           + ", ".join(str(x.relative_to(ROOT)) for x in other_libs)
           + f" in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
           f"parallel)")
+    hopper_paths(wgmma_lib, decode_lib)
     loop_instr = {mode: sass.kernel_loop_instructions(lib, part)
                   for mode, part in (("summary", SUMMARY_KERNEL),
                                      ("trace", TRACE_KERNEL))}

@@ -24,12 +24,24 @@ from typing import Dict, List, Sequence
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # No --use_fast_math: expf/logf/sqrtf and division stay IEEE-accurate.
-# -fmad=false: no contraction of a*x + b into an FMA, which the plain
-# PyTorch version (one op per kernel) never does. Kernels whose inner
-# loops are dot products (the attention kernels) write their FMAs
-# explicitly with fmaf, which this flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# -fmad=false: no contraction of a*x + b into an FMA, which the plain
+# PyTorch version (one op per kernel) never does. The closed-loop and scan
+# kernels need it to follow their plain versions bit for bit, and the SIMT
+# flash kernel keeps it (its dot products are explicit fmaf, which the flag
+# leaves alone). The sources named in `CONTRACTING` are built without it:
+# the tensor-core flash kernel and the decode kernel sum in their own order
+# and are held to their plain versions at a tolerance.
+EXACT_FLAGS = ("-fmad=false",)
+CONTRACTING = frozenset({"flash_attention_wgmma.cu", "decode_attention.cu"})
+
+
+def flags(source: Path) -> tuple:
+    """nvcc flags for ``source``: `NVCC_FLAGS`, plus `EXACT_FLAGS` unless
+    its file name is in `CONTRACTING`."""
+    return NVCC_FLAGS + (() if source.name in CONTRACTING else EXACT_FLAGS)
+
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -51,7 +63,7 @@ def nvcc_path() -> str:
 
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags(source)).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 
@@ -65,7 +77,7 @@ def build(source: Path) -> Path:
     # sees a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    cmd = [nvcc_path(), *flags(source), "-o", tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

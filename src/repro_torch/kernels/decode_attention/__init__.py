@@ -1,7 +1,7 @@
 """Split-KV decode attention: `ref.py` (plain PyTorch versions, the CPU
-path and the oracle), `kernel.py` (wrapper of the CUDA kernel in
-`csrc/`), `ops.py` (the public `decode_attention` op: partials + the
-log-sum-exp combine)."""
+path and the oracle), `kernel.py` (wrapper of the CUDA kernels in
+`csrc/`: partials and the log-sum-exp combine), `ops.py` (the public
+`decode_attention` op)."""
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 

@@ -1,11 +1,11 @@
 """Public decode-attention op: split-KV partials + log-sum-exp combine;
 port of `repro.kernels.decode_attention.ops`.
 
-On a CUDA tensor the partials come from the CUDA kernel
-(`kernel.decode_partials_cuda`); on a CPU tensor from the plain version
-(`ref.decode_partials_ref`); any other device raises. There is no
-fallback from the kernel to `ref`. The combine is PyTorch on both, as
-the reference keeps it outside `pallas_call`.
+On a CUDA tensor one launch of the CUDA kernel
+(`kernel.decode_attention_cuda`) computes the partials and combines them;
+on a CPU tensor the plain version does (`ref.decode_partials_ref`, then
+`combine`, which is also the kernel's oracle for the combine); any other
+device raises. There is no fallback from the kernel to `ref`.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention.kernel import (decode_partials_cuda,
+from repro_torch.kernels.decode_attention.kernel import (decode_attention_cuda,
                                                          default_chunk)
 from repro_torch.kernels.decode_attention.ref import decode_partials_ref
 
@@ -41,12 +41,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pos = int(pos)
     k_pos = k_pos.to(torch.int32)
     if q.device.type == "cuda":
-        m, l, acc = decode_partials_cuda(q.contiguous(), k.contiguous(),
-                                         v.contiguous(), k_pos.contiguous(),
-                                         pos, chunk)
-    elif q.device.type == "cpu":
-        m, l, acc = decode_partials_ref(q, k, v, k_pos, pos, chunk)
-    else:
-        raise ValueError(f"decode_attention runs on CUDA or CPU tensors, "
-                         f"not {q.device}")
-    return combine(m, l, acc, q.dtype)
+        return decode_attention_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), k_pos.contiguous(), pos,
+                                     chunk)[0]
+    if q.device.type == "cpu":
+        return combine(*decode_partials_ref(q, k, v, k_pos, pos, chunk),
+                       q.dtype)
+    raise ValueError(f"decode_attention runs on CUDA or CPU tensors, not "
+                     f"{q.device}")

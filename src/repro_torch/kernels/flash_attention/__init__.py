@@ -1,6 +1,7 @@
 """Flash-attention forward: `ref.py` (plain PyTorch version, the CPU
-path), `kernel.py` (wrapper of the CUDA kernel in `csrc/`), `ops.py`
-(the public `flash_attention` op in the model's layout)."""
+path), `kernel.py` (wrappers of the two CUDA kernels in `csrc/`: wgmma +
+TMA for bf16, SIMT for float32), `ops.py` (the public `flash_attention`
+op in the model's layout)."""
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 

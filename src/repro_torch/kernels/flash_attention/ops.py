@@ -2,9 +2,11 @@
 `repro.kernels.flash_attention.ops` (forward only: the recompute
 backward through `ref` comes with training).
 
-On a CUDA tensor it launches the CUDA kernel (`kernel.flash_attention_cuda`);
-on a CPU tensor it takes the plain version (`ref.attention_ref`); any
-other device raises. There is no fallback from the kernel to `ref`.
+On a CUDA tensor it launches a CUDA kernel (`kernel.flash_attention_cuda`:
+the tensor-core kernel for bf16, the SIMT one for float32, as
+`kernel.route` says); on a CPU tensor it takes the plain version
+(`ref.attention_ref`); any other device raises. There is no fallback
+from a kernel to `ref`.
 """
 from __future__ import annotations
 

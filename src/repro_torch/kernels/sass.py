@@ -1,5 +1,6 @@
 """Instruction counts from a built CUDA library's machine code (SASS), for
-the least time a kernel's time loop could take.
+the least time a kernel's time loop could take, and the opcodes a kernel
+holds (`opcodes`), to show which hardware paths it was built to take.
 
 `loop_instructions` finds a kernel's main loop in ``cuobjdump -sass``
 output (the backward branch that spans the most code, or the innermost
@@ -21,6 +22,7 @@ from __future__ import annotations
 import math
 import re
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -48,6 +50,20 @@ def functions(sass: str) -> Dict[str, Instrs]:
         if m and current is not None:
             current.append((int(m.group(1), 16), m.group(2).strip()))
     return out
+
+
+def opcodes(instrs: Instrs) -> Counter:
+    """How many times each opcode, with its modifiers and without a guard
+    predicate (``HGMMA.64x128x16.F32.BF16``, ``LDGSTS.E.BYPASS.128``),
+    occurs in ``instrs``."""
+    ops = Counter()
+    for _, text in instrs:
+        words = text.split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            ops[words[0]] += 1
+    return ops
 
 
 def _branch(text: str):
@@ -104,13 +120,19 @@ def library_sass(lib: Path) -> str:
     return proc.stdout
 
 
-def kernel_loop_instructions(lib: Path, name_part: str,
-                             containing: Optional[str] = None) -> int:
-    """`loop_instructions` of the one kernel in ``lib`` whose mangled name
+def kernel_instructions(lib: Path, name_part: str) -> Instrs:
+    """The instructions of the one kernel in ``lib`` whose mangled name
     contains ``name_part``."""
     funcs = {k: v for k, v in functions(library_sass(lib)).items()
              if name_part in k}
     if len(funcs) != 1:
         raise ValueError(f"{len(funcs)} kernels in {lib.name} match "
                          f"{name_part!r}")
-    return loop_instructions(next(iter(funcs.values())), containing)
+    return next(iter(funcs.values()))
+
+
+def kernel_loop_instructions(lib: Path, name_part: str,
+                             containing: Optional[str] = None) -> int:
+    """`loop_instructions` of the one kernel in ``lib`` whose mangled name
+    contains ``name_part``."""
+    return loop_instructions(kernel_instructions(lib, name_part), containing)

@@ -147,7 +147,8 @@ def test_decode_split_invariance():
 
 def test_decode_default_split_fills_the_card():
     from repro_torch.kernels.decode_attention.kernel import default_chunk
-    # qwen3-8b serving: B 8 x 8 KV heads, 1,056 slots -> 5 splits of 256
-    assert default_chunk(8, 8, 1056) == 256
-    assert default_chunk(1, 1, 100) == 64
+    # qwen3-8b serving: B 8 x 8 KV heads, 1,056 slots -> 4 splits of 288,
+    # 256 blocks: about 2 on each of the 132 SMs
+    assert default_chunk(8, 8, 1056) == 288
+    assert default_chunk(1, 1, 100) == 32
     assert default_chunk(64, 8, 4096) == 4096

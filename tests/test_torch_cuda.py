@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the closed-loop kernel, flash attention and split-KV decode attention
-(the attention bar is `repro_torch.kernels.attention_cases`), the
+the closed-loop kernel, flash attention (both routes) and split-KV decode
+attention (the attention bar is `repro_torch.kernels.attention_cases`), the
 selective scan (its bar is `repro_torch.kernels.selective_scan.cases`),
 and the serving paths through them. Every test here needs a CUDA device and
 skips without one; the file imports no jax, so it runs where only torch
@@ -137,11 +137,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
                                                    AC.FLASH_SERVE_F32],
                          ids=str)
 def test_flash_kernel_matches_plain_version(dev, case):
+    """Every case through the kernel `route` names (bf16: the tensor-core
+    kernel, float32: the SIMT one), counted once in `LAUNCHES` and once in
+    that route's count."""
     causal, window, dtype = case[5], case[6], case[7]
     q, k, v = AC.flash_inputs(case, dev)
-    before = FK.LAUNCHES
+    path = FK.route(q.dtype, q.shape[-1])
+    assert path == ("wgmma" if dtype == "bfloat16" else "simt")
+    before, routes = FK.LAUNCHES, dict(FK.ROUTE_LAUNCHES)
     got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
     assert FK.LAUNCHES == before + 1
+    assert FK.ROUTE_LAUNCHES[path] == routes[path] + 1
+    assert sum(FK.ROUTE_LAUNCHES.values()) == sum(routes.values()) + 1
     torch.cuda.synchronize()
     want = FR.attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == q.dtype and got.shape == q.shape
@@ -150,11 +157,14 @@ def test_flash_kernel_matches_plain_version(dev, case):
 
 
 def test_flash_kernel_rows_at_the_serving_shape(dev):
-    """bf16 at the serving shape, row by row against the float32 plain
-    version on the same inputs (`attention_cases.ROW_REL_BAR`)."""
+    """bf16 at the serving shape through the tensor-core kernel, row by row
+    against the float32 plain version on the same inputs
+    (`attention_cases.ROW_REL_BAR`)."""
     causal, window = AC.FLASH_SERVE[5:7]
     q, k, v = AC.flash_inputs(AC.FLASH_SERVE, dev)
+    before = FK.ROUTE_LAUNCHES["wgmma"]
     got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert FK.ROUTE_LAUNCHES["wgmma"] == before + 1
     want = FR.attention_ref(q.float(), k.float(), v.float(), causal=causal,
                             window=window)
     assert AC.row_rel_err(got, want) <= AC.ROW_REL_BAR
@@ -163,30 +173,39 @@ def test_flash_kernel_rows_at_the_serving_shape(dev):
 @pytest.mark.parametrize("case", AC.DECODE_CASES + [AC.DECODE_SERVE],
                          ids=str)
 def test_decode_kernel_matches_plain_version(dev, case):
+    """The partials against `ref.decode_partials_ref` and the combined
+    output against `ops.combine` of them, from one counted call."""
     q, k, v, k_pos, pos, chunk = AC.decode_inputs(case, dev)
     chunk = chunk or DK.default_chunk(q.shape[0], k.shape[2], k.shape[1])
     before = DK.LAUNCHES
-    m, l, acc = DK.decode_partials_cuda(q, k, v, k_pos, pos, chunk)
+    o, (m, l, acc) = DK.decode_attention_cuda(q, k, v, k_pos, pos, chunk)
     assert DK.LAUNCHES == before + 1
     torch.cuda.synchronize()
     mr, lr, ar = DR.decode_partials_ref(q, k, v, k_pos, pos, chunk)
-    # float32 partials whatever the input type: summation order only
+    # float32 partials whatever the input type: summation order only (the
+    # bf16 kernel keeps P as two bf16 parts, 2^-18 of each p)
     torch.testing.assert_close(m, mr, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(l, lr, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(acc, ar, atol=1e-4, rtol=1e-5)
+    tol = AC.tolerance(case[-1])
+    assert o.dtype == q.dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), DO.combine(mr, lr, ar, q.dtype)
+                               .float(), **tol)
     got = DO.decode_attention(q, k, v, k_pos, pos, block_k=chunk)
     want = DR.decode_attention_ref(q, k, v, k_pos, pos)
-    torch.testing.assert_close(got.float(), want.float(),
-                               **AC.tolerance(case[-1]))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-def test_decode_kernel_split_invariance(dev):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_split_invariance(dev, dtype):
     q, k, v, k_pos, pos, _ = AC.decode_inputs(
-        (1, 256, 4, 2, 32, 255, False, None, "float32"), dev, seed=3)
+        (1, 256, 4, 2, 32, 255, False, None, dtype), dev, seed=3)
     outs = [DO.decode_attention(q, k, v, k_pos, pos, block_k=b)
             for b in (256, 32, 64, 128, 96, None)]
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" \
+        else AC.tolerance(dtype)
     for o in outs[1:]:
-        torch.testing.assert_close(o, outs[0], atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(o.float(), outs[0].float(), **tol)
 
 
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -202,13 +221,54 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(dev):
         FK.flash_attention_cuda(q, k.cpu(), v)
     with pytest.raises(ValueError, match="hd"):
         FK.flash_attention_cuda(*(torch.zeros(1, 8, 2, 160, device=dev),) * 3)
+    # the tensor-core kernel's tensor maps need 16-byte aligned tensors
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    off = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=dev)
+    qs = off[1:].view(qb.shape)
+    qs.copy_(qb)
+    with pytest.raises(ValueError, match="aligned"):
+        FK.flash_attention_cuda(qs, kb, vb)
     qd, kd, vd, k_pos, pos, _ = AC.decode_inputs(AC.DECODE_CASES[0], dev)
     with pytest.raises(TypeError):
-        DK.decode_partials_cuda(qd, kd, vd, k_pos.long(), pos, 64)
+        DK.decode_attention_cuda(qd, kd, vd, k_pos.long(), pos, 64)
     with pytest.raises(ValueError, match="shape"):
-        DK.decode_partials_cuda(qd, kd, vd, k_pos[:10], pos, 64)
+        DK.decode_attention_cuda(qd, kd, vd, k_pos[:10], pos, 64)
+    # more than 16 query heads per KV head, and a bf16 row that is not a
+    # whole number of 16-byte chunks
+    with pytest.raises(ValueError, match="H / K"):
+        DK.decode_attention_cuda(torch.zeros(1, 32, 64, device=dev),
+                                 *(torch.zeros(1, 8, 1, 64, device=dev),) * 2,
+                                 k_pos[:8], 7, 8)
+    with pytest.raises(ValueError, match="multiple"):
+        DK.decode_attention_cuda(
+            torch.zeros(1, 2, 36, device=dev, dtype=torch.bfloat16),
+            *(torch.zeros(1, 8, 1, 36, device=dev, dtype=torch.bfloat16),) * 2,
+            k_pos[:8], 7, 8)
     with pytest.raises(ValueError):
         FO.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_built_kernels_take_the_hopper_paths(dev):
+    """The SASS of the built libraries: the bf16 flash kernel issues TMA
+    loads (UTMALDG) and warpgroup products (HGMMA); the decode kernels copy
+    the cache with 16-byte asynchronous loads only (LDGSTS ... .128), and
+    the bf16 one multiplies on the tensor cores (HMMA)."""
+    from repro_torch.kernels import _build, sass
+    flash, decode = _build.build_all([FK.WGMMA_SOURCE, DK.SOURCE])
+    for hdp in (64, 128):
+        ops = sass.opcodes(sass.kernel_instructions(
+            flash, f"flash_fwd_wgmma_kernelILi{hdp}E"))
+        assert any(op.startswith("HGMMA.64x128x16.F32.BF16") for op in ops)
+        assert any(op.startswith("HGMMA.64x64x16.F32.BF16") for op in ops)
+        assert any(op.startswith("UTMALDG.4D") for op in ops)
+    for part in ("decode_attention_mma_kernelILi128E",
+                 "decode_attention_kernelIfLi128ELi4E"):
+        ops = sass.opcodes(sass.kernel_instructions(decode, part))
+        copies = [op for op in ops if op.startswith("LDGSTS")]
+        assert copies and all(op.endswith(".128") for op in copies)
+    ops = sass.opcodes(sass.kernel_instructions(
+        decode, "decode_attention_mma_kernelILi128E"))
+    assert any(op.startswith("HMMA.16816.F32.BF16") for op in ops)
 
 
 def test_serving_path_runs_through_the_kernels(dev):
@@ -218,9 +278,11 @@ def test_serving_path_runs_through_the_kernels(dev):
     from repro_torch.launch import serve
     argv = ["--reduced", "--batch", "2", "--prompt-len", "1024", "--gen",
             "4", "--quiet"]
-    f0, d0 = FK.LAUNCHES, DK.LAUNCHES
+    f0, d0, w0 = FK.LAUNCHES, DK.LAUNCHES, FK.ROUTE_LAUNCHES["simt"]
     got = serve.main(argv, device=dev)["generated"]
     assert (FK.LAUNCHES - f0, DK.LAUNCHES - d0) == (1, 4)
+    # the reduced model computes in float32: the SIMT route
+    assert FK.ROUTE_LAUNCHES["simt"] - w0 == 1
     want = serve.main(argv, device="cpu")["generated"]
     np.testing.assert_array_equal(got, want)
 
@@ -317,8 +379,11 @@ def test_jamba_serving_path_runs_through_the_kernels(dev):
     argv = ["--arch", "jamba-v0.1-52b", "--reduced", "--batch", "2",
             "--prompt-len", "1024", "--gen", "4", "--quiet"]
     s0, f0, d0 = SK.LAUNCHES, FK.LAUNCHES, DK.LAUNCHES
+    w0 = FK.ROUTE_LAUNCHES["simt"]
     got = serve.main(argv, device=dev)["generated"]
     assert (SK.LAUNCHES - s0, FK.LAUNCHES - f0, DK.LAUNCHES - d0) == \
         (7 + 7 * 4, 1, 4)
+    # the reduced model computes in float32: the SIMT route
+    assert FK.ROUTE_LAUNCHES["simt"] - w0 == 1
     want = serve.main(argv, device="cpu")["generated"]
     np.testing.assert_array_equal(got, want)

@@ -95,3 +95,27 @@ def test_a_function_without_a_loop_is_refused():
     (instrs,) = sass.functions(listing("MOV R0, RZ", "EXIT")).values()
     with pytest.raises(ValueError, match="no loop"):
         sass.loop_instructions(instrs)
+
+
+# a Hopper attention kernel's listing, cut down: TMA loads, mbarrier waits,
+# tensor-core products, a guarded 16-byte asynchronous copy
+HOPPER = listing(
+    "UTMALDG.4D [UR8], [UR4]",
+    "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR6], R3",
+    "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], RZ, !UPT",
+    "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR16], R24",
+    "@P1 LDGSTS.E.BYPASS.128 [R5], desc[UR4][R6.64]",
+    "@!P2 BRA 0x10",
+    "EXIT",
+)
+
+
+def test_opcodes_count_mnemonics_without_guards():
+    (instrs,) = sass.functions(HOPPER).values()
+    ops = sass.opcodes(instrs)
+    assert ops["HGMMA.64x128x16.F32.BF16"] == 2
+    assert ops["UTMALDG.4D"] == 1
+    assert ops["LDGSTS.E.BYPASS.128"] == 1
+    assert ops["BRA"] == 1
+    assert sum(ops.values()) == 7
+    assert not any(op.startswith("@") for op in ops)
