@@ -8,18 +8,26 @@ Phases, each of which fails the run if a check fails:
 
 1. set-up: the card, the torch/CUDA versions and the kernel build from
    the sources in this checkout (timed);
-2. every kernel against its plain PyTorch version on the card, on the
-   same inputs, in trace and summary mode, at the shapes of
-   `parity.CARD_CASES` and one 4,096-run x 2,048-step grid;
+2. the closed-loop kernel on both noise routes (seeds: the noise
+   generated inside the kernel; tensor: `draw_noise`'s tensor read) against
+   the plain version on `draw_noise` of the same seeds, and against each
+   other, at the parity bar, in trace and summary mode (summary equal to
+   trace bit for bit), at the shapes of `parity.CARD_CASES` in float32 and
+   bf16 rows and on one 4,096-run x 2,048-step grid, with the share of runs
+   bit-equal between the routes;
 3. the main path at real size: `sweep` over gros/dahu/yeti x 11
    epsilons x 3,072 seeds (101,376 runs, 2,048 steps) in summary mode,
-   with the kernel's launch count read around it and physical checks;
+   with the launches by route, the `draw_noise` calls and the plain
+   version's calls read around it (1 seeds-route launch, no other), the
+   peak device memory, physical checks and a profile of its device time;
 4. the paper's headline (eps = 0.1 on gros) through a trace-mode `sweep`
    and `simulate_closed_loop`;
-5. the kernel against its plain version on the main path's own inputs
-   (101,376 runs, summary mode), the kernel's output against phase 3's
-   sweep, and timings with CUDA events (warm-up, median of 5 or 7): the
-   kernel beside its bound, the plain version, the noise draw;
+5. on the main path's own inputs (101,376 runs, summary mode): the seeds
+   route against phase 3's sweep (equal), the tensor route and the plain
+   version (at the bar), with the bit-equal share; timings with CUDA
+   events (warm-up, median of 3 to 7), in turns: the fused kernel and the
+   tensor route beside their bounds, `draw_noise`, the plain version, the
+   sweep's wall on each route, and both routes in trace mode;
 6. the flash-attention kernels (bf16 on the tensor cores, float32 on the
    SIMT route, as `flash_attention.kernel.route` sends them) and the
    split-KV decode kernels with their combine against their plain versions
@@ -50,12 +58,16 @@ Phases, each of which fails the run if a check fails:
    it; its logits against the plain paths on the same weights; one Mamba
    block at full width in float32, kernel route against chunked route;
    timings of prefill, a decode step and the scan kernel beside its bound
-   and plain version (no library call computes the scan).
+   and plain version (no library call computes the scan), at the serving
+   shape and, as device time per call, at the decode shape.
 
-The set-up also reads the built SASS: the bf16 flash kernel must hold
-warpgroup products (HGMMA) and TMA loads (UTMALDG), the decode kernels
-must copy the cache with 16-byte loads only (LDGSTS ... .128), and the
-bf16 one must multiply on the tensor cores (HMMA).
+The set-up also reads the built SASS: the fused closed-loop summary loop
+must touch no memory but its shared histograms (no LDG), the bf16 flash
+kernel must hold warpgroup products (HGMMA) and TMA loads (UTMALDG), the
+decode kernels must copy the cache with 16-byte loads only (LDGSTS ...
+.128), and the bf16 one must multiply on the tensor cores (HMMA); and it
+checks that the fused closed-loop instance keeps the main grid resident
+in one wave.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -83,14 +95,20 @@ ROOT = Path(__file__).resolve().parent
 # rate with an FMA counted once.
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_PER_S = 67e12 / 2
-# closed-loop kernel bytes per live run-step: 5 float32 noise reads,
-# and 7 float32 trace writes in trace mode
+# closed-loop kernel bytes per live run-step on the tensor route: 5
+# float32 noise reads (the seeds route reads none); 7 float32 trace
+# writes in trace mode
 NOISE_BYTES_PER_STEP = 5 * 4
 TRACE_BYTES_PER_STEP = 7 * 4
-# the float32 instantiations of the kernel (the main path's rows), in
-# summary and trace mode
-SUMMARY_KERNEL = "closed_loop_kernelIfLb0E"
-TRACE_KERNEL = "closed_loop_kernelIfLb1E"
+# the float32 instances of the closed-loop kernel with 16-bit histogram
+# counters (the main path's rows and horizon), by noise route and mode:
+# closed_loop_kernel<float, seeds, collect, 16>
+CL_KERNELS = {("seeds", "summary"): "closed_loop_kernelIfLb1ELb0ELi16E",
+              ("seeds", "trace"): "closed_loop_kernelIfLb1ELb1ELi16E",
+              ("noise", "summary"): "closed_loop_kernelIfLb0ELb0ELi16E",
+              ("noise", "trace"): "closed_loop_kernelIfLb0ELb1ELi16E"}
+# the main grid: 3 profiles x 11 epsilons x 3,072 seeds
+MAIN_RUNS = 3 * 11 * 3072
 
 EPS_GRID = [round(0.05 * i, 2) for i in range(11)]
 
@@ -199,6 +217,129 @@ def hopper_paths(wgmma_lib, decode_lib) -> None:
         if "mma" in part:
             check(hmma > 0, f"{part}: no HMMA")
         print(f"[setup] {part} SASS: cache copies {copies}; {hmma} HMMA")
+
+
+def closed_loop_sass(lib, dev) -> dict:
+    """Set-up reading of the closed-loop kernel: the instructions on the
+    shortest pass of each float32 instance's time loop (its operation
+    bound); the fused summary loop touching no memory but its shared
+    histograms (no LDG: nothing is read per step); the fused instance's
+    resources (the main grid resident in one wave); and the written-out
+    cosine against libdevice's cosf at every generator argument. Returns
+    {(route, mode): instructions}."""
+    import torch
+    from repro_torch.kernels import sass
+    from repro_torch.kernels.closed_loop import kernel as K
+
+    counts = {}
+    for key, part in CL_KERNELS.items():
+        instrs = sass.kernel_instructions(lib, part)
+        counts[key] = sass.loop_instructions(instrs)
+        if key == ("seeds", "summary"):
+            ops = sass.opcodes(sass.loop_body(instrs))
+            mem = {op: n for op, n in ops.items() if op.startswith(("LD", "ST"))}
+            check(mem and {op.split(".")[0] for op in mem} <= {"LDS", "STS"},
+                  f"fused summary loop's memory instructions {mem}")
+            print(f"[setup] fused summary loop SASS: memory instructions "
+                  f"{mem} (no LDG: no per-step read of device memory); "
+                  f"{ops.get('MUFU.RSQ', 0)} MUFU.RSQ, "
+                  f"{ops.get('MUFU.EX2', 0)} MUFU.EX2, "
+                  f"{ops.get('MUFU.LG2', 0)} MUFU.LG2, "
+                  f"{ops.get('F2I.NTZ', 0)} F2I.NTZ")
+    print("[setup] closed-loop SASS instructions per live step on the "
+          "shortest pass of the time loop: " + ", ".join(
+              f"{route} route {mode} {n}" for (route, mode), n in
+              counts.items()))
+    res = K.resources(torch.float32, True, False, K.bin_bits(2048), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = res["blocks_per_sm"] * res["block_threads"] * sms
+    print(f"[setup] fused summary instance: {res['registers']} registers, "
+          f"{res['local_bytes']} local bytes a thread, {res['blocks_per_sm']}"
+          f" blocks of {res['block_threads']} resident per SM, "
+          f"{res['shared_bytes']} shared bytes a block: {resident} runs "
+          f"resident on {sms} SMs")
+    check(resident >= MAIN_RUNS, f"the {MAIN_RUNS}-run main grid does not "
+          f"fit one wave ({resident} runs resident)")
+    print(f"[setup] written-out cosine against libdevice cosf at the 2^24 "
+          f"generator arguments: {K.cos_mismatches(dev)} differ")
+    return counts
+
+
+def both_routes(p, g, seeds, noise, sc, plain, tag):
+    """Both routes of the closed-loop kernel on the same runs (``seeds``,
+    and ``noise`` = `draw_noise` of them), each in trace and summary mode:
+    each route's summary mode bit-equal to its trace mode, each at the
+    parity bar against ``plain`` (the plain version's trace-mode result on
+    ``noise``) and the two routes at the bar against each other. Returns
+    the three largest differences and the (traces, final) of the seeds
+    route and of the tensor route."""
+    import torch
+    from repro_torch.kernels.closed_loop import kernel as K
+    from repro_torch.kernels.closed_loop.parity import check_parity
+
+    T = noise.shape[0]
+    out = {}
+    for route, call in (
+            ("seeds", lambda c: K.closed_loop_seeds_cuda(p, g, seeds, T, sc,
+                                                         collect=c)),
+            ("tensor", lambda c: K.closed_loop_cuda(p, g, noise, sc,
+                                                    collect=c))):
+        tr, blk = call(True)
+        _, blk_s = call(False)
+        fin, fin_s = K.unpack_final(*blk), K.unpack_final(*blk_s)
+        torch.cuda.synchronize()
+        for k in fin:
+            check(torch.equal(fin[k], fin_s[k]),
+                  f"{tag} {route} route: summary {k} != trace mode's")
+        out[route] = (tr, fin)
+    errs = (check_parity(*out["seeds"], *plain, tag=f"{tag} seeds route"),
+            check_parity(*out["tensor"], *plain, tag=f"{tag} tensor route"),
+            check_parity(*out["seeds"], *out["tensor"],
+                         tag=f"{tag} seeds route against tensor route"))
+    return errs, (out["seeds"], out["tensor"])
+
+
+def runs_equal(fa, fb, ta=None, tb=None) -> int:
+    """How many runs of one batch hold bit-equal outputs in two results:
+    final dicts ``fa``, ``fb`` and, if given, trace dicts ``ta``, ``tb``."""
+    import torch
+    B = fa["t"].shape[0]
+    same = torch.ones(B, dtype=torch.bool, device=fa["t"].device)
+    for k in fa:
+        same &= (fa[k] == fb[k]).reshape(B, -1).all(1)
+    for k in (ta or {}):
+        same &= (ta[k] == tb[k]).all(0)
+    return int(same.sum())
+
+
+def bound(n_bytes, steps, instr):
+    """The least time of a closed-loop launch that moves ``n_bytes`` and
+    runs ``steps`` live run-steps of ``instr`` instructions: (ms, "bytes"
+    or "operations", how it was counted)."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = steps * instr / ISSUE_PER_S * 1e3
+    how = (f"bytes {n_bytes / 1e9:.4f} GB -> {bytes_ms:.4f} ms; {instr} "
+           f"instructions x {steps} run-steps -> {ops_ms:.4f} ms")
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", how)
+
+
+@contextlib.contextmanager
+def tensor_route(ops):
+    """Send `closed_loop_sim`'s seeds through `draw_noise` and the kernel's
+    tensor route, as the main path ran before the noise moved into the
+    kernel: for phase 5's timing in turns only."""
+    run = ops.closed_loop_sim
+
+    def via_tensor(prof, gains, seeds, **kw):
+        T = ops.horizon(kw["max_time"], kw["dt"])
+        return run(prof, gains, ops.draw_noise(seeds, T, prof.device), **kw)
+
+    ops.closed_loop_sim = via_tensor
+    try:
+        yield
+    finally:
+        ops.closed_loop_sim = run
 
 
 def attention_parity(dev) -> dict:
@@ -551,7 +692,9 @@ def device_breakdown(fn, label: str) -> None:
             if ev.device_type != DeviceType.CUDA:
                 continue
             name = ev.name.lower()
-            fam = ("flash_attention kernel" if "flash_fwd" in name else
+            fam = ("closed_loop kernel" if "closed_loop" in name else
+                   "copies" if "memcpy" in name or "memset" in name else
+                   "flash_attention kernel" if "flash_fwd" in name else
                    "decode_attention kernels" if "decode_attention" in name
                    or "decode_combine" in name
                    else "selective_scan kernel" if "selective_scan" in name
@@ -789,6 +932,7 @@ def jamba_serving(dev, scan_err, scan_lib) -> dict:
     from repro_torch.kernels.selective_scan import cases as SC
     from repro_torch.kernels.selective_scan import kernel as SK
     from repro_torch.kernels.selective_scan import ref as SR
+    from repro_torch.kernels.timing import device_ms
     from repro_torch.launch import serve
     from repro_torch.models import (ApplyOptions, decode_step, init_params,
                                     prefill)
@@ -931,6 +1075,26 @@ def jamba_serving(dev, scan_err, scan_lib) -> dict:
           f"step x {steps} steps -> {ops_ms:.4f} ms; {Bs * S * d * N:.4g} "
           f"expf); {100 * bound / k_ms:.1f}% of the bound; plain version "
           f"{p_ms:.3f} ms")
+    # the decode shape: one step from the cached state, 7 launches per
+    # decode step of a serve; shorter than its host enqueue, so device time
+    x, dt, A, Bc, Cc, D, h0 = SC.scan_inputs(SC.SCAN_STEP, dev, with_h0=True)
+    dec_scan_ms = device_ms(lambda: SK.selective_scan_cuda(x, dt, A, Bc, Cc,
+                                                           D, h0))
+    d_bytes = sum(t.numel() * t.element_size()
+                  for t in (x, dt, A, Bc, Cc, D, h0)) \
+        + x.numel() * x.element_size() + h0.numel() * 4   # y, h_last
+    d_bytes_ms = d_bytes / HBM_BYTES_PER_S * 1e3
+    d_ops_ms = x.numel() * step_instr / ISSUE_PER_S * 1e3
+    d_bound = max(d_bytes_ms, d_ops_ms)
+    del x, dt, A, Bc, Cc, D, h0
+    print(f"[time] selective_scan kernel at the decode shape {SC.SCAN_STEP} "
+          f"from a state: {dec_scan_ms:.4f} ms device time per call; bound "
+          f"{d_bound:.4f} ms by {'bytes' if d_bytes_ms >= d_ops_ms else 'operations'} "
+          f"({d_bytes / 1e6:.3f} MB -> {d_bytes_ms:.4f} ms; "
+          f"{step_instr} instructions x {SC.SCAN_STEP[2] * SC.SCAN_STEP[0]} "
+          f"channel-steps -> {d_ops_ms:.5f} ms); "
+          f"{100 * d_bound / dec_scan_ms:.1f}% of the bound; "
+          f"{launches['selective_scan'] - n_mamba} such launches per serve")
     print("[time] library yardstick for the selective scan: none (no "
           "single PyTorch call computes it)")
     return {"name": "selective_scan", "route": "cuda",
@@ -962,6 +1126,7 @@ def main() -> int:
     from repro_torch.kernels.closed_loop.parity import (
         CARD_CASES, CARD_SUMMARY_FROM, check_parity)
 
+    started = time.perf_counter()
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -984,28 +1149,28 @@ def main() -> int:
           + f" in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
           f"parallel)")
     hopper_paths(wgmma_lib, decode_lib)
-    loop_instr = {mode: sass.kernel_loop_instructions(lib, part)
-                  for mode, part in (("summary", SUMMARY_KERNEL),
-                                     ("trace", TRACE_KERNEL))}
-    print(f"[setup] SASS instructions per live step on the shortest pass "
-          f"of the time loop: summary {loop_instr['summary']}, trace "
-          f"{loop_instr['trace']}")
+    loop_instr = closed_loop_sass(lib, dev)
 
-    # count the plain version's calls too: the main path must make none
-    plain_calls = [0]
-    plain_fn = R.closed_loop_ref
+    # count the plain version's and the noise draw's calls too: the main
+    # path must make none
+    plain_calls, draw_calls = [0], [0]
+    plain_fn, draw_fn = R.closed_loop_ref, ops.draw_noise
 
     def counted_plain(*a, **kw):
         plain_calls[0] += 1
         return plain_fn(*a, **kw)
 
-    R.closed_loop_ref = counted_plain
+    def counted_draw(*a, **kw):
+        draw_calls[0] += 1
+        return draw_fn(*a, **kw)
 
-    # ---- 2. kernel against plain version on the card ----------------
+    R.closed_loop_ref, ops.draw_noise = counted_plain, counted_draw
+
+    # ---- 2. both routes against the plain version on the card -------
     def rows(names, reps, eps=0.1):
         return sim.grid_rows(list(names) * reps, [eps], [0])[:2]
 
-    max_err = 0.0
+    max_err, same_runs, all_runs = 0.0, 0, 0
     t0 = time.perf_counter()
     for i, (names, reps, mt, tw) in enumerate(CARD_CASES):
         prof, gains = rows(names, reps)
@@ -1014,20 +1179,20 @@ def main() -> int:
             g = gains.to(dev, dtype)
             B = p.shape[0]
             T = ops.horizon(mt, 1.0)
-            noise = ops.draw_noise(torch.arange(B, device=dev) + 1000 * i,
-                                   T)
+            seeds = torch.arange(B, device=dev) + 1000 * i
+            noise = ops.draw_noise(seeds, T)
             sc = (tw, mt, 1.0, CARD_SUMMARY_FROM)
             plain = R.closed_loop_ref(p, g, noise, *sc, collect=True)
-            tk, blk = K.closed_loop_cuda(p, g, noise, sc, collect=True)
-            _, blk_s = K.closed_loop_cuda(p, g, noise, sc, collect=False)
-            fk, fs = K.unpack_final(*blk), K.unpack_final(*blk_s)
-            torch.cuda.synchronize()
-            for k in fk:  # summary mode == trace mode, bit for bit
-                check(torch.equal(fk[k], fs[k]), f"case {i}: summary {k}")
-            err = check_parity(tk, fk, *plain, tag=f"case {i} {dtype}")
+            tag = f"case {i} {dtype}"
+            errs, (a, b) = both_routes(p, g, seeds, noise, sc, plain, tag)
+            same = runs_equal(a[1], b[1], a[0], b[0])
+            same_runs, all_runs = same_runs + same, all_runs + B
             print(f"[parity] case {i} {'+'.join(names)} x{reps} B={B} "
-                  f"T={T} {str(dtype)[6:]}: max |kernel - plain| = {err:.3e}")
-            max_err = max(max_err, err)
+                  f"T={T} {str(dtype)[6:]}: max |kernel - plain| seeds "
+                  f"route {errs[0]:.3e}, tensor route {errs[1]:.3e}; "
+                  f"seeds route against tensor route {errs[2]:.3e}, "
+                  f"{same}/{B} runs bit-equal")
+            max_err = max(max_err, *errs)
     # one 4,096-run x 2,048-step grid over the four profiles and eps grid
     names = ("gros", "dahu", "yeti", "v5e-chip")
     prof, gains, seeds = sim.grid_rows(names, EPS_GRID[:8], range(128))
@@ -1035,18 +1200,21 @@ def main() -> int:
     big_noise = ops.draw_noise(seeds, 2048)
     big_sc = (1e9, 2048.0, 1.0, 30.0)
     plain = R.closed_loop_ref(prof, gains, big_noise, *big_sc, collect=True)
-    for collect in (True, False):
-        tk, blk = K.closed_loop_cuda(prof, gains, big_noise, big_sc,
-                                     collect=collect)
-        err = check_parity(tk, K.unpack_final(*blk),
-                           *(plain if collect else (None, plain[1])),
-                           tag=f"grid 4096x2048 collect={collect}")
-        print(f"[parity] grid B={prof.shape[0]} T=2048 collect={collect}: "
-              f"max |kernel - plain| = {err:.3e}")
-        max_err = max(max_err, err)
-    del plain, tk, blk
-    print(f"[parity] all shapes agree; max |kernel - plain| = {max_err:.3e}"
-          f" ({time.perf_counter() - t0:.1f} s)")
+    errs, (a, b) = both_routes(prof, gains, seeds, big_noise, big_sc, plain,
+                               "grid 4096x2048")
+    same = runs_equal(a[1], b[1], a[0], b[0])
+    same_runs, all_runs = same_runs + same, all_runs + prof.shape[0]
+    print(f"[parity] grid B={prof.shape[0]} T=2048, trace and summary: max "
+          f"|kernel - plain| seeds route {errs[0]:.3e}, tensor route "
+          f"{errs[1]:.3e}; seeds route against tensor route {errs[2]:.3e},"
+          f" {same}/{prof.shape[0]} runs bit-equal")
+    max_err = max(max_err, *errs)
+    big_seeds = seeds
+    del plain, a, b
+    print(f"[parity] all shapes agree on both routes; max |kernel - plain| "
+          f"= {max_err:.3e}; runs bit-equal between the routes "
+          f"{same_runs}/{all_runs} ({100 * same_runs / all_runs:.2f}%) "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- 3. the main path at real size -------------------------------
     main_kw = dict(total_work=1e9, max_time=2048.0, dt=1.0,
@@ -1054,20 +1222,26 @@ def main() -> int:
     main_grid = (("gros", "dahu", "yeti"), EPS_GRID, range(3072))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.LAUNCHES, plain_calls[0] = 0, 0
+    K.LAUNCHES, plain_calls[0], draw_calls[0] = 0, 0, 0
+    K.ROUTE_LAUNCHES.update(seeds=0, noise=0)
     t0 = time.perf_counter()
     res = sim.sweep(*main_grid, **main_kw)
     wall = time.perf_counter() - t0
-    launches, main_plain = K.LAUNCHES, plain_calls[0]
-    check(launches > 0, "main path launched no kernel")
+    main_peak = torch.cuda.max_memory_allocated() / 2**30
+    routes, main_plain, main_draws = (dict(K.ROUTE_LAUNCHES), plain_calls[0],
+                                      draw_calls[0])
+    launches = routes["seeds"]
+    check(routes == {"seeds": 1, "noise": 0}, f"main path launches by "
+          f"route {routes}: one fused (seeds) launch expected")
     check(main_plain == 0, "main path called the plain version")
+    check(main_draws == 0, "main path called draw_noise")
     n_runs = int(np.prod(res.energy.shape))
     live_steps = int(res.n_steps.astype(np.int64).sum())
     print(f"[main] sweep {res.energy.shape} = {n_runs} runs x 2048 steps "
-          f"in {wall:.3f} s wall ({n_runs / wall:.0f} runs/s, "
-          f"{live_steps / wall:.4g} run-steps/s); kernel launches "
-          f"{launches}, plain-version calls {main_plain}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"in {wall * 1e3:.1f} ms wall ({n_runs / wall:.0f} runs/s, "
+          f"{live_steps / wall:.4g} run-steps/s); kernel launches by route "
+          f"{routes}, draw_noise calls {main_draws}, plain-version calls "
+          f"{main_plain}; peak device memory {main_peak:.3f} GiB")
     check(res.energy.shape == (3, 11, 3072), "main grid shape")
     for k in ("progress_mean", "power_mean", "progress_std"):
         check(np.isfinite(res.summary[k]).all(), f"{k} not finite")
@@ -1094,9 +1268,12 @@ def main() -> int:
     main_out = {"energy": res.energy, "work": res.work,
                 "t": res.exec_time, "steps": res.n_steps}
     del res
+    device_breakdown(lambda: sim.sweep(*main_grid, **main_kw),
+                     "sweep, 101,376 runs x 2,048 steps, seeds route")
 
     # ---- 4. the paper's headline through sweep and simulate ----------
-    K.LAUNCHES, plain_calls[0] = 0, 0
+    K.LAUNCHES, plain_calls[0], draw_calls[0] = 0, 0, 0
+    K.ROUTE_LAUNCHES.update(seeds=0, noise=0)
     hl = sim.sweep("gros", [0.0, 0.1], range(30), total_work=6000.0)
     runs = []
     for ei, eps in enumerate((0.0, 0.1)):
@@ -1117,11 +1294,12 @@ def main() -> int:
         check(one.energy == float(hl.energy[1, s])
               and one.n_steps == int(hl.n_steps[1, s]),
               f"simulate_closed_loop seed {s} != sweep cell")
-    check(K.LAUNCHES == 3 and plain_calls[0] == 0, "headline path")
+    check(K.ROUTE_LAUNCHES == {"seeds": 3, "noise": 0}
+          and plain_calls[0] == 0 and draw_calls[0] == 0, "headline path")
     print(f"[headline] gros eps=0.1 vs 0: energy saving "
           f"{table[0.1]['energy_saving']:.4f}, time increase "
           f"{table[0.1]['time_increase']:.4f} (30 seeds, total_work 6000); "
-          f"kernel launches {K.LAUNCHES}")
+          f"kernel launches by route {K.ROUTE_LAUNCHES}")
 
     # ---- 5. the main path's own inputs: parity, then timings --------
     prof, gains, seeds = sim.grid_rows(*main_grid)
@@ -1129,61 +1307,111 @@ def main() -> int:
     draw_ms = cuda_ms(lambda: ops.draw_noise(seeds, 2048), reps=5)
     noise = ops.draw_noise(seeds, 2048)
     main_sc = (1e9, 2048.0, 1.0, 30.0)
-    _, blk = K.closed_loop_cuda(prof, gains, noise, main_sc, collect=False)
+    t0 = time.perf_counter()
+    _, blk = K.closed_loop_seeds_cuda(prof, gains, seeds, 2048, main_sc,
+                                      collect=False)
     fk = K.unpack_final(*blk)
     for k, v in main_out.items():  # the sweep ran this very launch
         check(np.array_equal(fk[k].cpu().numpy().astype(v.dtype),
                              v.reshape(-1)), f"main path {k} != sweep's")
-    t0 = time.perf_counter()
+    _, blk = K.closed_loop_cuda(prof, gains, noise, main_sc, collect=False)
+    fn = K.unpack_final(*blk)
+    err_routes = check_parity(None, fk, None, fn,
+                              tag=f"main path B={n_runs}: seeds route "
+                                  f"against tensor route")
+    same = runs_equal(fk, fn)
     plain = R.closed_loop_ref(prof, gains, noise, *main_sc, collect=False)
     err = check_parity(None, fk, None, plain[1],
                        tag=f"main path B={n_runs} T=2048 summary")
-    max_err = max(max_err, err)
+    err_t = check_parity(None, fn, None, plain[1],
+                         tag=f"main path B={n_runs}, tensor route")
+    max_err = max(max_err, err, err_t, err_routes)
     print(f"[parity] main path B={n_runs} T=2048 summary: max |kernel - "
-          f"plain| = {err:.3e}; phase 3's sweep equals this launch "
+          f"plain| seeds route {err:.3e}, tensor route {err_t:.3e}; seeds "
+          f"route against tensor route {err_routes:.3e}, {same}/{n_runs} "
+          f"runs bit-equal; phase 3's sweep equals this seeds-route launch "
           f"({time.perf_counter() - t0:.1f} s)")
-    del plain, fk, blk
-    kern_ms = cuda_ms(lambda: K.closed_loop_cuda(prof, gains, noise,
-                                                 main_sc, collect=False))
-    # the parity run above was the plain version's warm-up
-    plain_ms = cuda_ms(lambda: R.closed_loop_ref(prof, gains, noise,
-                                                 *main_sc, collect=False),
-                       reps=5, warmup=0)
-    in_bytes = (prof.numel() + gains.numel()) * 4
+    del plain, fk, fn, blk
+
+    def fused():
+        K.closed_loop_seeds_cuda(prof, gains, seeds, 2048, main_sc,
+                                 collect=False)
+
+    def tensor():
+        K.closed_loop_cuda(prof, gains, noise, main_sc, collect=False)
+
+    f1, t1, t2, f2 = (cuda_ms(f) for f in (fused, tensor, tensor, fused))
+    kern_ms, tensor_ms = (f1 + f2) / 2, (t1 + t2) / 2
+    # the plain version of the seeds route: draw_noise, then the plain
+    # closed loop on the card (the parity run above was its warm-up)
+    plain_ms = cuda_ms(lambda: R.closed_loop_ref(
+        prof, gains, ops.draw_noise(seeds, 2048), *main_sc, collect=False),
+        reps=3, warmup=0)
+    rows_bytes = (prof.numel() + gains.numel()) * 4
     out_bytes = (K.N_STATE + R.PROG_BINS + R.CAP_BINS) * n_runs * 4
-    bytes_main = live_steps * NOISE_BYTES_PER_STEP + in_bytes + out_bytes
-    bytes_ms = bytes_main / HBM_BYTES_PER_S * 1e3
-    ops_ms = live_steps * loop_instr["summary"] / ISSUE_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"[time] closed_loop kernel, main path ({n_runs} runs x 2048, "
-          f"summary): {kern_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-          f"{bound_by} (bytes {bytes_main / 1e9:.4f} GB -> {bytes_ms:.4f} "
-          f"ms; {loop_instr['summary']} instructions x {live_steps} "
-          f"run-steps -> {ops_ms:.4f} ms); {bytes_main / kern_ms / 1e6:.1f}"
-          f" GB/s; {100 * bound_ms / kern_ms:.1f}% of the bound")
-    print(f"[time] plain version, same inputs: {plain_ms:.2f} ms "
-          f"({plain_ms / kern_ms:.1f}x the kernel)")
-    print(f"[time] draw_noise (T=2048, B={n_runs}): {draw_ms:.3f} ms; "
-          f"sweep wall in phase 3 was {wall * 1e3:.1f} ms")
+    bound_ms, bound_by, how = bound(
+        rows_bytes + seeds.numel() * 8 + out_bytes, live_steps,
+        loop_instr["seeds", "summary"])
+    t_bound, t_by, t_how = bound(
+        rows_bytes + live_steps * NOISE_BYTES_PER_STEP + out_bytes,
+        live_steps, loop_instr["noise", "summary"])
+    print(f"[time] closed_loop kernel, seeds route (noise generated in the "
+          f"kernel), main path ({n_runs} runs x 2048, summary): "
+          f"{kern_ms:.4f} ms ({f1:.4f}, {f2:.4f}); bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({how}); {100 * bound_ms / kern_ms:.1f}% of the "
+          f"bound")
+    print(f"[time] closed_loop kernel, tensor route, same runs: "
+          f"{tensor_ms:.4f} ms ({t1:.4f}, {t2:.4f}); bound {t_bound:.4f} ms "
+          f"by {t_by} ({t_how}); {100 * t_bound / tensor_ms:.1f}% of the "
+          f"bound; with draw_noise {draw_ms + tensor_ms:.3f} ms")
+    print(f"[time] draw_noise (T=2048, B={n_runs}): {draw_ms:.3f} ms; plain "
+          f"version of the seeds route (draw_noise + plain closed loop): "
+          f"{plain_ms:.2f} ms ({plain_ms / kern_ms:.1f}x the fused kernel)")
     del noise
+    torch.cuda.empty_cache()
+
+    # the sweep's wall by route, in turns: seeds, tensor, tensor, seeds
+    walls, peaks = {"seeds": [], "noise": []}, {}
+    for route in ("seeds", "noise", "noise", "seeds"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with (tensor_route(ops) if route == "noise"
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            sim.sweep(*main_grid, **main_kw)
+            walls[route].append(time.perf_counter() - t0)
+        peaks[route] = torch.cuda.max_memory_allocated() / 2**30
+    for route, label in (("seeds", "seeds route"),
+                         ("noise", "tensor route (draw_noise + kernel)")):
+        w = np.mean(walls[route])
+        kern = kern_ms if route == "seeds" else tensor_ms + draw_ms
+        print(f"[main] sweep wall, {label}: "
+              + ", ".join(f"{x * 1e3:.1f}" for x in walls[route])
+              + f" ms ({n_runs / w:.0f} runs/s); device work "
+              f"{kern:.1f} ms, host front end {w * 1e3 - kern:.1f} ms; peak "
+              f"device memory {peaks[route]:.3f} GiB")
+
     big_prof, big_gains = sim.grid_rows(names, EPS_GRID[:8], range(128))[:2]
     big_prof, big_gains = big_prof.to(dev), big_gains.to(dev)
-    tr_ms = cuda_ms(lambda: K.closed_loop_cuda(big_prof, big_gains,
-                                               big_noise, big_sc,
-                                               collect=True))
     tr_steps = big_prof.shape[0] * 2048
-    tr_bytes_ms = tr_steps * (NOISE_BYTES_PER_STEP + TRACE_BYTES_PER_STEP) \
-        / HBM_BYTES_PER_S * 1e3
-    tr_ops_ms = tr_steps * loop_instr["trace"] / ISSUE_PER_S * 1e3
-    print(f"[time] closed_loop kernel, trace mode ({big_prof.shape[0]} "
-          f"runs x 2048): {tr_ms:.4f} ms; bound "
-          f"{max(tr_bytes_ms, tr_ops_ms):.4f} ms (bytes {tr_bytes_ms:.4f} "
-          f"ms, instructions {tr_ops_ms:.4f} ms)")
+    for route, call in (
+            ("seeds", lambda: K.closed_loop_seeds_cuda(
+                big_prof, big_gains, big_seeds, 2048, big_sc, collect=True)),
+            ("noise", lambda: K.closed_loop_cuda(
+                big_prof, big_gains, big_noise, big_sc, collect=True))):
+        tr_ms = cuda_ms(call)
+        noise_bytes = tr_steps * NOISE_BYTES_PER_STEP if route == "noise" \
+            else 0
+        tb, tby, thow = bound(tr_steps * TRACE_BYTES_PER_STEP + noise_bytes,
+                              tr_steps, loop_instr[route, "trace"])
+        print(f"[time] closed_loop kernel, {route} route, trace mode "
+              f"({big_prof.shape[0]} runs x 2048): {tr_ms:.4f} ms; bound "
+              f"{tb:.4f} ms by {tby} ({thow})")
     print("[time] library yardstick: none (no single PyTorch call "
           "computes this closed loop)")
+    R.closed_loop_ref, ops.draw_noise = plain_fn, draw_fn
 
-    del big_noise, prof, gains, seeds, big_prof, big_gains
+    del big_noise, prof, gains, seeds, big_prof, big_gains, big_seeds
     torch.cuda.empty_cache()
 
     attn_err = attention_parity(dev)                      # phase 6
@@ -1194,6 +1422,8 @@ def main() -> int:
     scan_err = scan_parity(dev)                           # phase 9
     scan_row = jamba_serving(dev, scan_err, scan_lib)     # phase 10
 
+    print(f"[done] every phase passed in {time.perf_counter() - started:.1f}"
+          f" s, the kernels' build included")
     print(json.dumps({"kernels": [{
         "name": "closed_loop", "route": "cuda",
         "source": "src/repro_torch/kernels/closed_loop/csrc/closed_loop.cu",

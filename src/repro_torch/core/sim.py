@@ -4,9 +4,11 @@ port of the fixed-gain-PI path of `repro.core.sim`.
 The paper's evaluation is thousands of closed-loop runs sweeping the
 degradation grid eps across clusters and seeds. Every run here goes
 through the fused closed-loop op (`repro_torch.kernels.closed_loop`):
-on CUDA the hand-written kernel, on the CPU its plain PyTorch version.
-That op is the reference's ``backend="pallas"`` path: static plant,
-fixed-gain PI, rounded-Gaussian heartbeats, per-run noise streams.
+on CUDA the hand-written kernel, which generates each run's noise stream
+(`ops.draw_noise` of its seed) inside the kernel, so no noise tensor
+exists; on the CPU its plain PyTorch version on `draw_noise`. That op is
+the reference's ``backend="pallas"`` path: static plant, fixed-gain PI,
+rounded-Gaussian heartbeats, per-run noise streams.
 
 Entry points:
 
@@ -226,8 +228,9 @@ def simulate_closed_loop(profile: Union[str, PlantProfile],
 
     Pass either `epsilon` (gains placed from the profile's identified
     model) or explicit `gains` (e.g. designed on a different profile).
-    The run's noise stream is `ops.draw_noise` of ``seed``. Runs on CUDA
-    unless ``device="cpu"``."""
+    The run's noise stream is that of `ops.draw_noise` for ``seed``
+    (generated inside the kernel on CUDA). Runs on CUDA unless
+    ``device="cpu"``."""
     _reject(init=init, adaptive=adaptive, design=design, policy=policy,
             workload=workload, detector=detector, faults=faults,
             guard=guard, record_events=record_events)

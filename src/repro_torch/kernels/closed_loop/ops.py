@@ -4,8 +4,10 @@ port of `repro.kernels.closed_loop.ops`.
 `closed_loop_sim` takes packed per-run profile / gain rows and either
 per-run seeds or a ready noise tensor, and returns (traces, final-carry
 dict) — the contract of `ref.closed_loop_ref`. CUDA tensors go to the
-CUDA kernel (`kernel.closed_loop_cuda`), CPU tensors to the plain
-PyTorch version; there is no other path.
+CUDA kernel: seeds to its seeds route (`kernel.closed_loop_seeds_cuda`,
+which generates the streams of `draw_noise` inside the kernel), a noise
+tensor to its tensor route (`kernel.closed_loop_cuda`). CPU tensors go to
+the plain PyTorch version on `draw_noise`; there is no other path.
 
 `draw_noise` does not reproduce `jax.random`: it is a counter-based
 generator in plain integer arithmetic (a murmur3-style mix of seed,
@@ -23,8 +25,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.counter_rng import M32, mix32, unit24
 from repro_torch.kernels.closed_loop import ref as R
-from repro_torch.kernels.closed_loop.kernel import (closed_loop_cuda,
-                                                    unpack_final)
+from repro_torch.kernels.closed_loop.kernel import (
+    closed_loop_cuda, closed_loop_seeds_cuda, unpack_final)
 
 # Time is rounded up to this many steps, as the reference kernel's time
 # chunk rounds it; runs are frozen (done) before the padded tail.
@@ -104,27 +106,37 @@ def closed_loop_sim(prof: torch.Tensor, gains: torch.Tensor,
     """Fused closed-loop runs for a flat batch.
 
     prof (B, 14) / gains (B, 9) packed rows (float32 or bfloat16) on one
-    device; ``seeds_or_noise`` is either (B,) integer seeds (noise drawn
-    by `draw_noise`) or a ready (T, 5, B) float32 noise tensor with
-    T = `horizon(max_time, dt)`. Returns (traces | None, final): traces
-    are (T, B) float32 per `ref.TRACE_KEYS`, final the `ref` carry dict
-    of (B,) leaves + (B, BINS) histograms.
+    device; ``seeds_or_noise`` is either (B,) integer seeds (each run's
+    noise is `draw_noise` of its seed) or a ready (T, 5, B) float32 noise
+    tensor with T = `horizon(max_time, dt)`. Returns (traces | None,
+    final): traces are (T, B) float32 per `ref.TRACE_KEYS`, final the
+    `ref` carry dict of (B,) leaves + (B, BINS) histograms.
+
+    On CUDA tensors seeds take the kernel's seeds route, which generates
+    the noise inside the kernel, and a noise tensor its tensor route; a
+    refused build or launch raises. On CPU tensors the plain version runs
+    on `draw_noise` of the seeds or on the given noise.
     """
     B = prof.shape[0]
     T = horizon(max_time, dt)
-    if (isinstance(seeds_or_noise, torch.Tensor)
-            and seeds_or_noise.is_floating_point()):
-        noise = seeds_or_noise
-        if tuple(noise.shape) != (T, R.N_NOISE, B):
-            raise ValueError(f"noise must be {(T, R.N_NOISE, B)} for "
-                             f"max_time={max_time}, dt={dt}; got "
-                             f"{tuple(noise.shape)}")
-    else:
-        noise = draw_noise(seeds_or_noise, T, prof.device)
+    scalars = (total_work, max_time, dt, summary_from)
+    given = (isinstance(seeds_or_noise, torch.Tensor)
+             and seeds_or_noise.is_floating_point())
+    if given and tuple(seeds_or_noise.shape) != (T, R.N_NOISE, B):
+        raise ValueError(f"noise must be {(T, R.N_NOISE, B)} for "
+                         f"max_time={max_time}, dt={dt}; got "
+                         f"{tuple(seeds_or_noise.shape)}")
     if prof.device.type == "cuda":
-        traces, blocks = closed_loop_cuda(
-            prof.contiguous(), gains.contiguous(), noise.contiguous(),
-            (total_work, max_time, dt, summary_from), collect)
+        prof, gains = prof.contiguous(), gains.contiguous()
+        if given:
+            traces, blocks = closed_loop_cuda(
+                prof, gains, seeds_or_noise.contiguous(), scalars, collect)
+        else:
+            seeds = torch.as_tensor(seeds_or_noise, dtype=torch.int64,
+                                    device=prof.device).contiguous()
+            traces, blocks = closed_loop_seeds_cuda(prof, gains, seeds, T,
+                                                    scalars, collect)
         return traces, unpack_final(*blocks)
-    return R.closed_loop_ref(prof, gains, noise, total_work, max_time, dt,
-                             summary_from, collect)
+    noise = (seeds_or_noise if given
+             else draw_noise(seeds_or_noise, T, prof.device))
+    return R.closed_loop_ref(prof, gains, noise, *scalars, collect)

@@ -74,13 +74,12 @@ def _branch(text: str):
     return int(m.group(3), 16), bool(m.group(1) or m.group(2))
 
 
-def loop_instructions(instrs: Instrs, containing: Optional[str] = None
-                      ) -> int:
-    """Fewest instructions one pass of the widest loop in ``instrs`` can
-    issue per thread (the backward branch that closes it included). With
-    ``containing``, the loop is the narrowest one whose body holds an
-    instruction that starts with that text (an opcode such as
-    ``"MUFU.EX2"``): the innermost loop that does a given kind of work."""
+def loop_body(instrs: Instrs, containing: Optional[str] = None) -> Instrs:
+    """The instructions of the widest loop in ``instrs``, from its head to
+    the backward branch that closes it. With ``containing``, the loop is
+    the narrowest one whose body holds an instruction that starts with
+    that text (an opcode such as ``"MUFU.EX2"``): the innermost loop that
+    does a given kind of work."""
     loops = [(addr, b[0]) for addr, text in instrs
              if (b := _branch(text)) and b[0] < addr]
     if containing is not None:
@@ -93,7 +92,15 @@ def loop_instructions(instrs: Instrs, containing: Optional[str] = None
     width = (lambda lt: lt[1] - lt[0]) if containing else \
         (lambda lt: lt[0] - lt[1])
     tail, head = max(loops, key=width)
-    body = [(a, t) for a, t in instrs if head <= a <= tail]
+    return [(a, t) for a, t in instrs if head <= a <= tail]
+
+
+def loop_instructions(instrs: Instrs, containing: Optional[str] = None
+                      ) -> int:
+    """Fewest instructions one pass of the `loop_body` in ``instrs`` can
+    issue per thread (the backward branch that closes it included)."""
+    body = loop_body(instrs, containing)
+    tail = body[-1][0]
     index = {a: i for i, (a, _) in enumerate(body)}
     cost = [math.inf] * len(body)
     cost[-1] = 1

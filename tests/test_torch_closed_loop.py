@@ -14,6 +14,8 @@ entries equal (rtol 1e-5), caps within 1e-2 W, the integrals within
 rtol 1e-5, and each run's histograms hold the same total with at most
 2 counts moved.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -273,3 +275,126 @@ def test_parity_bar_rejects_breaches(breach):
         tr2 = None
     with pytest.raises(AssertionError):
         check_parity(tr2, fin2, tr, fin)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's in-kernel noise generator, read from its source
+# ---------------------------------------------------------------------------
+
+_CU = K.SOURCE.read_text()
+# the kernel's names for the step's noise values, in `ref.NZ_*` order
+_CHANNEL_VARS = {"z_prog": R.NZ_PROG, "z_pow": R.NZ_POW,
+                 "u_enter": R.NU_ENTER, "u_exit": R.NU_EXIT,
+                 "z_hb": R.NZ_HB}
+
+
+def _cu_const(name):
+    m = re.search(rf"constexpr \w+ {name} = ([0-9A-Fa-fx.e+-]+?)[uf]?;", _CU)
+    assert m, f"{name} not found in {K.SOURCE.name}"
+    text = m.group(1)
+    return int(text, 16) if text.lower().startswith("0x") else float(text)
+
+
+def _cu_words():
+    """Channel -> the key indices its line in the kernel's step reads."""
+    words = {}
+    for var, args in re.findall(
+            r"(\w+) = (?:normal|uniform)\(h, ((?:key\[\d\], )*key\[\d\])\);",
+            _CU):
+        words[_CHANNEL_VARS[var]] = tuple(
+            int(i) for i in re.findall(r"key\[(\d)\]", args))
+    return words
+
+
+def test_kernel_channel_words_are_draw_noise_words():
+    assert _cu_words() == ops._WORDS
+    assert _cu_const("kWords") == 8 == 1 + max(
+        w for ws in ops._WORDS.values() for w in ws)
+
+
+def test_kernel_generator_constants_reproduce_draw_noise():
+    """The kernel's generator written out in numpy uint32 arithmetic from
+    the constants in its source (word keys from the seed's two halves,
+    the step hash, one mix32 per word, unit24, Box-Muller in float32 with
+    the kernel's 2 pi) gives `draw_noise`'s streams on the CPU: the
+    uniforms bit for bit, the normals as torch rounds them here."""
+    c = {n: _cu_const(n) for n in ("kSeedXor", "kWordMul", "kStepMul",
+                                   "kStepAdd", "kMix1", "kMix2",
+                                   "kUnit24", "kTwoPi")}
+    assert np.float32(c["kTwoPi"]) == np.float32(2.0 * np.pi)
+    assert c["kUnit24"] == 2.0 ** -24
+
+    def mix32(x):
+        x = x ^ (x >> np.uint32(16))
+        x = x * np.uint32(c["kMix1"])
+        x = x ^ (x >> np.uint32(13))
+        x = x * np.uint32(c["kMix2"])
+        return x ^ (x >> np.uint32(16))
+
+    seeds = np.array([0, 1, 7, 2**40 + 7, -3, 2**63 - 1], dtype=np.int64)
+    T = 37
+    s = seeds.view(np.uint64)
+    with np.errstate(over="ignore"):
+        k = mix32((s & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                  ^ np.uint32(c["kSeedXor"]))
+        k = mix32(k ^ (s >> np.uint64(32)).astype(np.uint32))
+        keys = [mix32(k + np.uint32((w + 1) * c["kWordMul"] & 0xFFFFFFFF))
+                for w in range(8)]
+        t = np.arange(T, dtype=np.uint32)
+        h = mix32(t * np.uint32(c["kStepMul"]) + np.uint32(c["kStepAdd"]))
+        unif = [((mix32(h[:, None] + key[None, :]) >> np.uint32(8))
+                 .astype(np.float32) * np.float32(c["kUnit24"]))
+                for key in keys]
+    want = ops.draw_noise(torch.from_numpy(seeds), T, "cpu")
+    for ch, words in _cu_words().items():
+        u = torch.from_numpy(unif[words[0]])
+        if len(words) == 2:
+            u2 = torch.from_numpy(unif[words[1]])
+            u = (torch.sqrt(-2.0 * torch.log(1.0 - u))
+                 * torch.cos(c["kTwoPi"] * u2))
+        assert torch.equal(u, want[:, ch]), ch
+
+
+@pytest.mark.parametrize("T,bits", [(1, 16), (2048, 16), (65535, 16),
+                                    (65536, 32), (1 << 20, 32)])
+def test_histogram_counter_width(T, bits):
+    """16-bit counters hold at most 65,535 steps; longer horizons take
+    32-bit counters."""
+    assert K.bin_bits(T) == bits
+    with pytest.raises(ValueError):
+        K.bin_bits(0)
+
+
+@pytest.mark.parametrize("given", ["seeds", "noise"])
+def test_closed_loop_sim_on_cpu_runs_the_plain_version(monkeypatch, given):
+    """CPU tensors take the plain version, on `draw_noise` of the seeds or
+    on the given noise; neither kernel route is reached."""
+    calls = {"draw": 0, "plain": 0}
+    draw, plain = ops.draw_noise, R.closed_loop_ref
+
+    def counted(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def refuse(*a, **kw):
+        raise AssertionError("a kernel route was reached from the CPU")
+
+    monkeypatch.setattr(ops, "draw_noise", counted("draw", draw))
+    monkeypatch.setattr(R, "closed_loop_ref", counted("plain", plain))
+    monkeypatch.setattr(ops, "closed_loop_seeds_cuda", refuse)
+    monkeypatch.setattr(ops, "closed_loop_cuda", refuse)
+    prof, gains, _ = _rows(("gros", "yeti"), reps=2)
+    p, g = from_reference(np.asarray(prof), np.asarray(gains), device="cpu")
+    seeds = torch.arange(4) + 5
+    arg = seeds if given == "seeds" else draw(seeds, 64, "cpu")
+    tr, fin = ops.closed_loop_sim(p, g, arg, total_work=1e9, max_time=64.0,
+                                  summary_from=3.0)
+    assert calls == {"draw": int(given == "seeds"), "plain": 1}
+    tr_w, fin_w = plain(p, g, draw(seeds, 64, "cpu"), 1e9, 64.0, 1.0, 3.0,
+                        True)
+    for k in fin:
+        assert torch.equal(fin[k], fin_w[k])
+    for k in tr:
+        assert torch.equal(tr[k], tr_w[k])

@@ -47,37 +47,99 @@ def dev():
     return torch.device("cuda")
 
 
+def _launch(route, prof, gains, seeds, T, sc, collect):
+    """One launch of the kernel on ``route``: "seeds" generates the noise
+    of ``seeds`` inside the kernel, "noise" reads `draw_noise` of them."""
+    if route == "seeds":
+        return K.closed_loop_seeds_cuda(prof, gains, seeds, T, sc, collect)
+    return K.closed_loop_cuda(prof, gains, ops.draw_noise(seeds, T), sc,
+                              collect)
+
+
+@pytest.mark.parametrize("route", ["seeds", "noise"])
 @pytest.mark.parametrize("collect", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("profiles,reps,max_time,total_work",
                          P.CARD_CASES)
 def test_kernel_matches_plain_version(dev, profiles, reps, max_time,
-                                      total_work, collect, dtype):
+                                      total_work, collect, dtype, route):
+    """Both noise routes against `draw_noise` + the plain version, each
+    launch counted once in `LAUNCHES` and once in its route's count."""
     prof, gains, _ = sim.grid_rows(list(profiles) * reps, [0.1], [0])
     prof = prof.to(dev, getattr(torch, dtype))
     gains = gains.to(dev, getattr(torch, dtype))
     B = prof.shape[0]
-    noise = ops.draw_noise(torch.arange(B, device=dev), ops.horizon(
-        max_time, 1.0))
+    T = ops.horizon(max_time, 1.0)
+    seeds = torch.arange(B, device=dev)
     sc = (total_work, max_time, 1.0, P.CARD_SUMMARY_FROM)
-    before = K.LAUNCHES
-    tk, blocks = K.closed_loop_cuda(prof, gains, noise, sc, collect)
+    before, routes = K.LAUNCHES, dict(K.ROUTE_LAUNCHES)
+    tk, blocks = _launch(route, prof, gains, seeds, T, sc, collect)
     assert K.LAUNCHES == before + 1
+    assert K.ROUTE_LAUNCHES[route] == routes[route] + 1
+    assert sum(K.ROUTE_LAUNCHES.values()) == sum(routes.values()) + 1
     torch.cuda.synchronize()
-    tp, fp = R.closed_loop_ref(prof, gains, noise, *sc, collect=collect)
+    tp, fp = R.closed_loop_ref(prof, gains, ops.draw_noise(seeds, T), *sc,
+                               collect=collect)
     P.check_parity(tk, K.unpack_final(*blocks), tp, fp)
 
 
-def test_summary_mode_equals_trace_mode(dev):
+@pytest.mark.parametrize("route", ["seeds", "noise"])
+def test_summary_mode_equals_trace_mode(dev, route):
     prof, gains, seeds = sim.grid_rows(["gros", "yeti"], [0.0, 0.2],
                                        range(40))
-    prof, gains = prof.to(dev), gains.to(dev)
-    noise = ops.draw_noise(seeds.to(dev), 256)
+    prof, gains, seeds = prof.to(dev), gains.to(dev), seeds.to(dev)
     sc = (4000.0, 256.0, 1.0, 30.0)
-    _, a = K.closed_loop_cuda(prof, gains, noise, sc, collect=True)
-    _, b = K.closed_loop_cuda(prof, gains, noise, sc, collect=False)
+    _, a = _launch(route, prof, gains, seeds, 256, sc, True)
+    _, b = _launch(route, prof, gains, seeds, 256, sc, False)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_seeds_route_sub_grid_equals_one_shot(dev):
+    """Each run's stream depends on its seed alone: a sub-grid of the
+    runs, in another order, reproduces their one-shot rows bit for bit."""
+    prof, gains, seeds = sim.grid_rows(["gros", "dahu", "yeti"],
+                                       [0.0, 0.1, 0.3], range(50))
+    prof, gains, seeds = prof.to(dev), gains.to(dev), seeds.to(dev)
+    sc = (3000.0, 320.0, 1.0, 10.0)
+    tr, blk = K.closed_loop_seeds_cuda(prof, gains, seeds, 320, sc, True)
+    pick = torch.arange(prof.shape[0] - 1, 0, -7, device=dev)
+    tr_s, blk_s = K.closed_loop_seeds_cuda(prof[pick], gains[pick],
+                                           seeds[pick], 320, sc, True)
+    for a, b in zip(blk, blk_s):
+        assert torch.equal(a[:, pick], b)
+    for k in tr:
+        assert torch.equal(tr[k][:, pick], tr_s[k])
+
+
+def test_seeds_route_wide_bins_equal_narrow_bins(dev):
+    """A horizon of 65,536 steps takes 32-bit histogram counters: runs
+    that finish early give the same outputs as under a short horizon
+    (16-bit counters), bit for bit."""
+    prof, gains, seeds = sim.grid_rows(["gros", "yeti"], [0.1], range(70))
+    prof, gains, seeds = prof.to(dev), gains.to(dev), seeds.to(dev)
+    assert (K.bin_bits(128), K.bin_bits(65536)) == (16, 32)
+    _, short = K.closed_loop_seeds_cuda(prof, gains, seeds, 128,
+                                        (150.0, 128.0, 1.0, 2.0), False)
+    _, wide = K.closed_loop_seeds_cuda(prof, gains, seeds, 65536,
+                                       (150.0, 65536.0, 1.0, 2.0), False)
+    fs, fw = K.unpack_final(*short), K.unpack_final(*wide)
+    assert bool((fs["done"] == 1).all())  # every run finished by work
+    for k in fs:
+        assert torch.equal(fs[k], fw[k]), k
+
+
+def test_written_out_cosine_equals_cosf(dev):
+    """The kernel's Box-Muller cosine equals libdevice's cosf at all 2^24
+    arguments the generator gives it."""
+    assert K.cos_mismatches(dev) == 0
+
+
+def test_fused_instance_holds_the_main_grid_in_one_wave(dev):
+    res = K.resources(torch.float32, True, False, K.bin_bits(2048), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert res["local_bytes"] == 0
+    assert res["blocks_per_sm"] * res["block_threads"] * sms >= 3 * 11 * 3072
 
 
 def test_sweep_on_the_card_matches_the_cpu(dev):
@@ -90,9 +152,11 @@ def test_sweep_on_the_card_matches_the_cpu(dev):
     noise_g = ops.draw_noise(torch.arange(12, device=dev), 256)
     torch.testing.assert_close(noise_g.cpu(), noise_c, rtol=1e-5,
                                atol=1e-5)
-    before = K.LAUNCHES
+    before, routes = K.LAUNCHES, dict(K.ROUTE_LAUNCHES)
     g = sim.sweep(["gros", "dahu"], [0.0, 0.1], seeds, **kw, device=dev)
     assert K.LAUNCHES == before + 1
+    assert K.ROUTE_LAUNCHES == {"seeds": routes["seeds"] + 1,
+                                "noise": routes["noise"]}
     c = sim.sweep(["gros", "dahu"], [0.0, 0.1], seeds, **kw, device="cpu")
     np.testing.assert_array_equal(g.n_steps, c.n_steps)
     np.testing.assert_array_equal(g.exec_time, c.exec_time)
@@ -126,6 +190,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         K.closed_loop_cuda(prof, gains, noise[:, :4], sc)
     with pytest.raises(ValueError):
         K.closed_loop_cuda(prof, gains.cpu(), noise, sc)
+
+
+def test_seeds_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    prof, gains, seeds = sim.grid_rows(["gros"], [0.1], range(4))
+    prof, gains, seeds = prof.to(dev), gains.to(dev), seeds.to(dev)
+    sc = (1e9, 64.0, 1.0, 0.0)
+    before = K.LAUNCHES
+    with pytest.raises(TypeError):
+        K.closed_loop_seeds_cuda(prof, gains, seeds.int(), 64, sc)
+    with pytest.raises(TypeError):
+        K.closed_loop_seeds_cuda(prof, gains, seeds.double(), 64, sc)
+    with pytest.raises(ValueError, match="is on cpu"):
+        K.closed_loop_seeds_cuda(prof, gains, seeds.cpu(), 64, sc)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.closed_loop_seeds_cuda(prof, gains,
+                                 torch.stack([seeds, seeds], 1)[:, 0], 64,
+                                 sc)
+    with pytest.raises(ValueError, match="shape"):
+        K.closed_loop_seeds_cuda(prof, gains, seeds[:3], 64, sc)
+    assert K.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------
