@@ -27,10 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # -fmad=false: no contraction of a*x + b into an FMA, which the plain
-# PyTorch version (one op per kernel) never does. The closed-loop and scan
-# kernels need it to follow their plain versions bit for bit, and the SIMT
-# flash kernel keeps it (its dot products are explicit fmaf, which the flag
-# leaves alone). The sources named in `CONTRACTING` are built without it:
+# PyTorch version (one op per kernel) never does. The closed-loop kernel
+# needs it to follow its plain version bit for bit; the SIMT flash kernel
+# and the selective scan keep it and fuse only where they say so, by
+# explicit fmaf (the flash dot products; the scan's state update and its
+# sum over the states), which the flag leaves alone. The sources named in `CONTRACTING` are built without it:
 # the tensor-core flash kernel and the decode kernel sum in their own order
 # and are held to their plain versions at a tolerance.
 EXACT_FLAGS = ("-fmad=false",)

@@ -66,6 +66,13 @@ def opcodes(instrs: Instrs) -> Counter:
     return ops
 
 
+def local_memory(ops: Counter) -> Dict[str, int]:
+    """The local-memory loads and stores (LDL, STL: spilled registers or
+    arrays the compiler could not keep in registers) among `opcodes`."""
+    return {op: n for op, n in ops.items()
+            if op.split(".")[0] in ("LDL", "STL")}
+
+
 def _branch(text: str):
     """(target, conditional) of a BRA instruction, else None."""
     m = _BRANCH.match(text)

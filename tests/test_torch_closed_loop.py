@@ -98,6 +98,39 @@ def test_plain_version_matches_reference_kernel(profiles, reps, max_time,
     check_parity(tr_p, fin_p, tr_r, fin_r)
 
 
+# (dt, summary_from, total_work) away from the defaults the cases above
+# use: other control periods, a summary warm-up, runs that finish at once
+# (no work to do) and early
+SETTINGS = [(0.25, 0.0, 1e9), (0.5, 0.0, 1e9), (2.0, 0.0, 1e9),
+            (1.0, 10.0, 1e9), (1.0, 20.0, 1e9), (1.0, 0.0, 0.0),
+            (1.0, 0.0, 150.0)]
+
+
+@pytest.mark.parametrize("collect", [True, False])
+@pytest.mark.parametrize("dt,summary_from,total_work", SETTINGS)
+def test_plain_version_matches_reference_off_the_defaults(
+        dt, summary_from, total_work, collect):
+    """The plain version against the reference's oracle at other control
+    periods, summary warm-ups and amounts of work, in trace and summary
+    mode, on mixed plants (drop events included)."""
+    prof, gains, keys = _rows(("gros", "dahu", "yeti"), reps=2)
+    max_time = 64.0
+    T = ops.horizon(max_time, dt)
+    noise = jops.draw_noise(keys, T)
+    tr_r, fin_r = JR.closed_loop_ref(prof, gains, noise, total_work,
+                                     max_time, dt=dt,
+                                     summary_from=summary_from,
+                                     collect=collect)
+    p, g, n = from_reference(np.asarray(prof), np.asarray(gains),
+                             np.asarray(noise), device="cpu")
+    tr_p, fin_p = ops.closed_loop_sim(p, g, n, total_work=total_work,
+                                      max_time=max_time, dt=dt,
+                                      summary_from=summary_from,
+                                      collect=collect)
+    assert (tr_p is None) == (not collect)
+    check_parity(tr_p, fin_p, tr_r, fin_r)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_param_dtype_buckets(dtype):
     """Rows arriving in bfloat16 are widened once on load, in both

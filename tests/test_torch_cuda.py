@@ -377,12 +377,16 @@ def test_serving_path_runs_through_the_kernels(dev):
 
 
 @pytest.mark.parametrize("case", SC.SCAN_CASES + SC.SCAN_RAGGED
-                         + [SC.SCAN_SERVE], ids=str)
+                         + [SC.SCAN_LONG, SC.SCAN_SERVE], ids=str)
 def test_scan_kernel_matches_plain_version(dev, case):
     x, dt, A, Bc, Cc, D, _ = SC.scan_inputs(case, dev)
-    before = SK.LAUNCHES
+    before, routes = SK.LAUNCHES, dict(SK.ROUTE_LAUNCHES)
+    generic = SK.GENERIC_LAUNCHES
     y, h = SK.selective_scan_cuda(x, dt, A, Bc, Cc, D)
     assert SK.LAUNCHES == before + 1
+    assert SK.ROUTE_LAUNCHES == {"seq": routes["seq"] + 1,
+                                 "step": routes["step"]}
+    assert SK.GENERIC_LAUNCHES == generic + (not SC.exact_instance(case))
     torch.cuda.synchronize()
     yr, hr = SR.selective_scan_ref(x, dt, A, Bc, Cc, D)
     assert y.dtype == x.dtype and h.dtype == torch.float32
@@ -391,19 +395,86 @@ def test_scan_kernel_matches_plain_version(dev, case):
     torch.testing.assert_close(h, hr, **SC.F32_TOL)
 
 
-@pytest.mark.parametrize("case", [SC.SCAN_STEP, (2, 45, 160, 16, "float32"),
-                                  (1, 1, 64, 4, "bfloat16")], ids=str)
+@pytest.mark.parametrize("case", SC.SCAN_STEPS + [
+    (2, 45, 160, 16, "float32"), (1, 1, 64, 4, "bfloat16")], ids=str)
 def test_scan_kernel_continues_from_a_state(dev, case):
-    """h0 read at the start: one decode step at the serving widths, and a
-    longer run, from a non-zero state."""
+    """h0 read at the start: decode steps (the step instance) at the
+    serving widths, in bf16, at one batch row and a ragged state size,
+    and a longer run, from a non-zero state."""
     x, dt, A, Bc, Cc, D, h0 = SC.scan_inputs(case, dev, seed=2,
                                              with_h0=True)
+    generic = SK.GENERIC_LAUNCHES
     y, h = SK.selective_scan_cuda(x, dt, A, Bc, Cc, D, h0)
+    assert SK.GENERIC_LAUNCHES == generic + (not SC.exact_instance(case))
     torch.cuda.synchronize()
     yr, hr = SR.selective_scan_ref(x, dt, A, Bc, Cc, D, h0)
     torch.testing.assert_close(y.float(), yr.float(),
                                **SC.tolerance(case[4]))
     torch.testing.assert_close(h, hr, **SC.F32_TOL)
+
+
+def test_scan_launches_are_counted_by_instance(dev):
+    """One launch a call: S == 1 on the step instance, S > 1 on the
+    sequence instance, as `route` names them; the generic template at a
+    ragged state size, and for S > 1 at rows of x that are not whole
+    16-byte words, counted as the C entry reports it."""
+    for case, instance, generic in (
+            ((2, 1, 64, 16, "float32"), "step", 0),
+            ((2, 2, 64, 16, "float32"), "seq", 0),
+            ((1, 1, 40, 5, "bfloat16"), "step", 1),
+            ((1, 9, 40, 5, "bfloat16"), "seq", 1),
+            ((1, 9, 36, 8, "bfloat16"), "seq", 1),
+            ((1, 1, 36, 8, "bfloat16"), "step", 0)):
+        assert SK.route(case[1]) == instance
+        assert SC.exact_instance(case) == (not generic)
+        x, dt, A, Bc, Cc, D, h0 = SC.scan_inputs(case, dev, with_h0=True)
+        before, routes = SK.LAUNCHES, dict(SK.ROUTE_LAUNCHES)
+        g0 = SK.GENERIC_LAUNCHES
+        SK.selective_scan_cuda(x, dt, A, Bc, Cc, D, h0)
+        routes[instance] += 1
+        assert SK.LAUNCHES == before + 1 and SK.ROUTE_LAUNCHES == routes
+        assert SK.GENERIC_LAUNCHES == g0 + generic
+
+
+@pytest.mark.parametrize("S", [1, 40])
+def test_scan_unaligned_tensors_take_the_generic_template(dev, S):
+    """A contiguous x that does not start on a 16-byte boundary (a view
+    one element into its storage) cannot take the exact instances'
+    16-byte copies: the launch takes the generic template, says so, and
+    still matches the plain version."""
+    case = (2, S, 64, 16, "float32")
+    x, dt, A, Bc, Cc, D, h0 = SC.scan_inputs(case, dev, with_h0=True)
+    xu = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    xu.copy_(x)
+    g0 = SK.GENERIC_LAUNCHES
+    y, h = SK.selective_scan_cuda(xu, dt, A, Bc, Cc, D, h0)
+    assert SK.GENERIC_LAUNCHES == g0 + 1
+    torch.cuda.synchronize()
+    yr, hr = SR.selective_scan_ref(x, dt, A, Bc, Cc, D, h0)
+    torch.testing.assert_close(y, yr, **SC.F32_TOL)
+    torch.testing.assert_close(h, hr, **SC.F32_TOL)
+
+
+def test_scan_instances_take_the_hopper_paths(dev):
+    """The SASS and resources of the built scan instances (float32, d_state
+    16, the serving path's): the sequence instance stages its tiles with
+    asynchronous copies (LDGSTS) and holds jamba's prefill grid resident
+    in one wave; the step instance loads the state with 128-bit loads;
+    neither touches local memory."""
+    from repro_torch.kernels import _build, sass
+    lib = _build.build(SK.SOURCE)
+    seq = sass.opcodes(sass.kernel_instructions(
+        lib, "selective_scan_seq_kernelIfLi16ELb0E"))
+    step = sass.opcodes(sass.kernel_instructions(
+        lib, "selective_scan_step_kernelIfLi16ELb0E"))
+    assert any(op.startswith("LDGSTS") for op in seq)
+    assert any(op.startswith("LDG") and ".128" in op for op in step)
+    assert not sass.local_memory(seq) and not sass.local_memory(step)
+    res = SK.resources("seq", dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, _, d = SC.SCAN_SERVE[:3]
+    assert res["local_bytes"] == 0
+    assert res["blocks_per_sm"] * sms * res["channels_per_block"] >= B * d
 
 
 def test_scan_op_on_the_card_matches_the_cpu(dev):

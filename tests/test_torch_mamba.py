@@ -54,21 +54,27 @@ def _jnp(t):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", SC.SCAN_CASES, ids=str)
+@pytest.mark.parametrize("case", SC.SCAN_CASES + SC.SCAN_RAGGED
+                         + SC.SCAN_STEPS + [SC.SCAN_LONG], ids=str)
 def test_selective_scan_ref_matches_jax(case):
-    """y of the plain version against the reference's oracle and against
-    its Pallas kernel in interpret mode, on tests/test_kernels.py's
-    shapes."""
-    dtype, block_d, chunk = case[4:]
+    """y of the plain version against the reference's oracle at every
+    shape the CUDA kernel is held to (the decode steps from a zero state:
+    the reference takes none), and against its Pallas kernel in interpret
+    mode on tests/test_kernels.py's shapes, which carry its ``block_d``
+    and ``chunk``."""
+    dtype = case[4]
     x, dt, A, Bc, Cc, D, _ = SC.scan_inputs(case, "cpu", seed=4)
     y, h = selective_scan_ref(x, dt, A, Bc, Cc, D)
     assert y.dtype == x.dtype and y.shape == x.shape
     assert h.dtype == torch.float32 and h.shape == (x.shape[0], x.shape[2],
                                                     A.shape[1])
     args = [_jnp(t) for t in (x, dt, A, Bc, Cc, D)]
-    want = jscan_ref(*args)
-    kern = jscan(*args, block_d=block_d, chunk=chunk, interpret=True)
-    for ref in (want, kern):
+    refs = [jscan_ref(*args)]
+    if len(case) > 5:
+        block_d, chunk = case[5:]
+        refs.append(jscan(*args, block_d=block_d, chunk=chunk,
+                          interpret=True))
+    for ref in refs:
         np.testing.assert_allclose(_np(y), np.asarray(ref, np.float32),
                                    **_tol(dtype))
     # the op takes the plain version on CPU tensors

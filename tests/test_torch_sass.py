@@ -119,3 +119,23 @@ def test_opcodes_count_mnemonics_without_guards():
     assert ops["BRA"] == 1
     assert sum(ops.values()) == 7
     assert not any(op.startswith("@") for op in ops)
+
+
+def test_local_memory_names_spills_only():
+    """LDL / STL (spilled registers, local arrays) are told apart from the
+    other loads and stores: shared, global, asynchronous copies."""
+    spilling = listing(
+        "STL [R1+0x4], R8",
+        "LDS.128 R12, [R3]",
+        "@P0 LDL.LU R8, [R1+0x4]",
+        "LDL R9, [R1+0x8]",
+        "LDG.E.128.CONSTANT R4, desc[UR4][R6.64]",
+        "@P1 LDGSTS.E.BYPASS.128 [R5], desc[UR4][R6.64]",
+        "STG.E desc[UR4][R2.64], R0",
+        "EXIT",
+    )
+    (instrs,) = sass.functions(spilling).values()
+    assert sass.local_memory(sass.opcodes(instrs)) == {
+        "STL": 1, "LDL.LU": 1, "LDL": 1}
+    (instrs,) = sass.functions(HOPPER).values()
+    assert sass.local_memory(sass.opcodes(instrs)) == {}
