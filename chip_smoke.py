@@ -70,7 +70,22 @@ Phases, each of which fails the run if a check fails:
    float32 operations at 67 TFLOP/s) and plain version (no library call
    computes the scan), at the serving shape by CUDA events around one
    call and as device time per call, and, as device time per call with
-   the inputs cold and warm in L2, at the decode shape.
+   the inputs cold and warm in L2, at the decode shape;
+11. the paper's identification and evaluation path on the card, which
+   has no kernel of its own: Fig. 3's staircase (`plant.simulate`; the
+   saturation bar on gros and dahu), Fig. 4's static campaign through
+   `sim.open_loop_runs` and `identify.fit_static` (Table 2 recovered to
+   the reference tests' bars), Fig. 5's `sim.replay_model` and
+   `identify.fit_dynamics` (tau and the dynamic K_L at rel 0.05), the
+   Poisson-heartbeat scan engine (`sweep(backend="scan")`) on phase 3's
+   main grid (seed means within rtol 0.05 of phase 3's kernel route, no
+   closed-loop kernel launch, every Poisson draw resolved, a 97-seed
+   sub-grid bit-equal to the full grid's rows), its wall, runs/s, peak
+   memory, launches per step and device idle share (`torch.profiler`,
+   device activity only, over the main grid cut to 256 steps), and
+   Fig. 7 at the reference's
+   full size on both engines with its open-loop baseline (all runs
+   complete, the trade-off direction holds).
 
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
@@ -690,17 +705,21 @@ def serving_path(dev):
     return launches, params, batch
 
 
-def device_breakdown(fn, label: str) -> None:
+def device_breakdown(fn, label: str, host_ops: bool = True):
     """Print the device time of one call of ``fn`` by kernel family and
-    its share of the call's wall time, from `torch.profiler`. A reading,
-    not a check: if the profiler gives no device events it says so."""
+    its share of the call's wall time, from `torch.profiler`, and return
+    ``{"wall_us", "busy_us", "launches"}`` (None when not measured). A
+    reading, not a check: if the profiler gives no device events it says
+    so. ``host_ops=False`` records the device's activity only: over tens
+    of thousands of launches, recording every host op slows the host and
+    so inflates the idle share it reads."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU] * host_ops
+                     + [ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -724,15 +743,18 @@ def device_breakdown(fn, label: str) -> None:
         busy = sum(us for _, us in groups.values())
         if not groups:
             print(f"[profile] {label}: no device events; not measured")
-            return
+            return None
         print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device "
               f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%, idle "
               f"{100 - 100 * busy / wall_us:.1f}%); "
               + "; ".join(f"{fam} {us / 1e3:.3f} ms in {n} launches"
                           for fam, (n, us) in sorted(
                               groups.items(), key=lambda x: -x[1][1])))
+        return {"wall_us": wall_us, "busy_us": busy,
+                "launches": sum(n for n, _ in groups.values())}
     except Exception as e:  # a reading only: the smoke's checks stand
         print(f"[profile] {label}: not measured ({type(e).__name__}: {e})")
+        return None
 
 
 def attention_timings(dev, serving, errs) -> list:
@@ -1195,6 +1217,232 @@ def jamba_serving(dev, scan_err) -> dict:
             "library_ms": None}
 
 
+# Fig. 7 of the reference (`benchmarks/fig7_pareto.py`) at its full size:
+# its eps grid, 30 reps, 6,000 work units and a 2,000 s horizon
+FIG7_EPS = (0.0, 0.01, 0.02, 0.05, 0.08, 0.1, 0.15, 0.2, 0.3, 0.4, 0.5)
+FIG7_REPS = 30
+FIG7_WORK = 6000.0
+FIG7_TIME = 2000.0
+# phase 11's sub-grid: 97 of the main grid's 3,072 seeds (every 32nd and
+# the last), against the same rows of the full grid
+SUB_SEEDS = list(range(0, 3072, 32)) + [3071]
+# phase 11 profiles the scan engine over the main grid cut to this
+# horizon (its minimum bucket), device activity only: launches per step
+# and the idle share are per-step readings, and a 2,048-step trace holds
+# ~10^6 profiler events
+PROFILE_STEPS = 256
+# the scan engine against the kernel route: the same model, other random
+# streams (Poisson heartbeats against rounded Gaussians), as the port's
+# CPU test compares the two engines
+ENGINE_RTOL = 0.05
+
+
+def paper_workflow(dev, main_grid, main_kw, kernel_means, smi) -> None:
+    """Phase 11: the paper's identification and evaluation path on the
+    card, through the port's entry points: Fig. 3's staircase, Fig. 4's
+    static campaign and fit, Fig. 5's replay and dynamic fit, the scan
+    engine on the main grid against phase 3's kernel route, and Fig. 7 at
+    full size on both engines."""
+    import torch
+    from repro_torch.core import identify, sim
+    from repro_torch.core.energy import RunSummary, tradeoff_table
+    from repro_torch.core.plant import PROFILES, pcap_linearize, simulate
+    from repro_torch.kernels.closed_loop import kernel as K
+    from repro_torch.kernels.closed_loop import ops
+    started = time.perf_counter()
+    walls = {}
+
+    # ---- Fig. 3: the staircase, open loop --------------------------------
+    t0 = time.perf_counter()
+    hold, levels = 20, np.arange(40.0, 121.0, 20.0)
+    stairs = torch.tensor(np.repeat(levels, hold), dtype=torch.float32,
+                          device=dev)
+    noise = ops.draw_noise([3], len(stairs), device=dev)[:, :4, 0]
+    for name in ("gros", "dahu", "yeti"):
+        tr = simulate(PROFILES[name], stairs, 1.0, noise)
+        prog = tr["progress"].cpu().numpy()
+        power = tr["power"].cpu().numpy()
+        seg = lambda i: float(np.median(prog[i * hold + 5:(i + 1) * hold]))
+        sat = ((seg(len(levels) - 1) - seg(len(levels) - 2))
+               / max(seg(1) - seg(0), 1e-9))
+        if name in ("gros", "dahu"):  # yeti: drops dominate (paper §5.2)
+            check(sat < 0.5, f"fig3 {name}: saturation ratio {sat}")
+        print(f"[paper] fig3 {name}: saturation ratio {sat:.4f}, actuator "
+              f"error at 120 W {120.0 - power[-hold:].mean():.3f} W, noise "
+              f"sd {float(np.std(prog[-hold:])):.3f} Hz, min progress "
+              f"{prog.min():.3f} Hz")
+    walls["fig3"] = time.perf_counter() - t0
+
+    # ---- Fig. 4: static campaign through open_loop_runs, NLS fit ---------
+    t0 = time.perf_counter()
+    for name, reps, tol in (("gros", 3, 0.05), ("dahu", 3, 0.08),
+                            ("yeti", 4, None)):
+        p = PROFILES[name]
+        caps, powers, progs = identify.static_campaign(p, reps=reps,
+                                                       device=dev)
+        fit = identify.fit_static(caps, powers, progs, device=dev)
+        r = identify.pearson(progs, -1.0 / (progs + 1e-9), device=dev)
+        if tol is None:   # tests/test_identify.py's noisy-multisocket bar
+            check(abs(fit.K_L - p.K_L) <= 0.25 * p.K_L
+                  and 0.7 < fit.r2 <= 1.0, f"fig4 {name}: {fit}")
+        else:             # tests/test_identify.py's Table 2 bars
+            check(abs(fit.a - p.a) <= tol * p.a
+                  and abs(fit.b - p.b) <= 2.0
+                  and abs(fit.K_L - p.K_L) <= tol * p.K_L
+                  and abs(fit.alpha - p.alpha) <= 0.25 * p.alpha
+                  and abs(fit.beta - p.beta) <= 3.0 and fit.r2 > 0.95,
+                  f"fig4 {name}: {fit} against Table 2")
+        print(f"[paper] fig4 {name} ({9 * reps} runs x 40 steps): a "
+              f"{fit.a:.4f} ({p.a}), b {fit.b:.3f} ({p.b}), K_L "
+              f"{fit.K_L:.3f} ({p.K_L}), alpha {fit.alpha:.5f} ({p.alpha}),"
+              f" beta {fit.beta:.3f} ({p.beta}), R2 {fit.r2:.5f}; pearson "
+              f"(progress, -time) {r:.4f}")
+    walls["fig4"] = time.perf_counter() - t0
+
+    # ---- Fig. 5: Eq. 3 replay and the dynamic fit -------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    sched = torch.tensor(np.repeat(rng.uniform(40, 120, 120), 4),
+                         dtype=torch.float32, device=dev)
+    noise = ops.draw_noise([2], len(sched), device=dev)[:, :4, 0]
+    for name in ("gros", "dahu", "yeti"):
+        p = PROFILES[name]
+        tr = simulate(p, sched, 1.0, noise)
+        pred = sim.replay_model(p, sched, 1.0, device=dev)
+        pl = pcap_linearize(p, sched)
+        tau, kl = identify.fit_dynamics(pl, tr["progress_clean"] - p.K_L,
+                                        1.0)
+        tau_r, kl_r = identify.fit_dynamics(pl, pred - p.K_L, 1.0)
+        gap = float((pred - tr["progress_clean"]).abs().max())
+        err = (tr["progress"] - pred).cpu().numpy()
+        check(abs(tau - p.tau) <= 0.05 * p.tau
+              and abs(kl - p.K_L) <= 0.05 * p.K_L,
+              f"fig5 {name}: tau {tau}, K_L {kl}")
+        check(gap <= 1e-3 * p.K_L, f"fig5 {name}: replay {gap} Hz off the "
+              f"clean plant")
+        print(f"[paper] fig5 {name}: tau {tau:.5f} s ({p.tau:.5f}), dynamic "
+              f"K_L {kl:.4f} ({p.K_L}); on the replay tau {tau_r:.5f}, K_L "
+              f"{kl_r:.4f}; replay vs clean plant max {gap:.3e} Hz; "
+              f"measured - replay mean {err.mean():.3f} Hz, sd "
+              f"{err.std():.3f} Hz")
+    walls["fig5"] = time.perf_counter() - t0
+
+    # ---- the scan engine on the main grid ---------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sim.sweep(*main_grid, **main_kw, backend="scan")
+    scan_wall = time.perf_counter() - t0
+    scan_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(K.LAUNCHES == 0, f"the scan sweep launched the closed-loop "
+          f"kernel {K.LAUNCHES} times")
+    n_runs = int(np.prod(res.energy.shape))
+    check(res.energy.shape == (3, 11, 3072), "scan grid shape")
+    check((res.n_steps == 2048).all(), "every scan run lives 2048 steps")
+    check(np.all(res.summary["progress_hist"].sum(-1) == 2048 - 30),
+          "scan histogram mass is the post-warm-up step count")
+    worst = {}
+    for k in ("progress_mean", "power_mean", "energy"):
+        mine = (res.energy if k == "energy" else res.summary[k]).mean(-1)
+        check(np.isfinite(mine).all(), f"scan {k} not finite")
+        rel = np.abs(mine / kernel_means[k] - 1.0)
+        worst[k] = float(rel.max())
+        check(worst[k] <= ENGINE_RTOL, f"scan {k} off the kernel route by "
+              f"{worst[k]:.4f} > {ENGINE_RTOL}")
+    print(f"[paper] scan sweep {res.energy.shape} = {n_runs} runs x 2048 "
+          f"steps (summary, warm-up 30) in {scan_wall:.3f} s wall "
+          f"({n_runs / scan_wall:.0f} runs/s); closed-loop kernel launches "
+          f"{K.LAUNCHES}; peak device memory {scan_peak:.3f} GiB; every "
+          f"Poisson draw resolved; seed means against phase 3's kernel "
+          f"route, worst relative gap: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
+          + f" (bar {ENGINE_RTOL})")
+    t0 = time.perf_counter()
+    sub = sim.sweep(main_grid[0], main_grid[1], SUB_SEEDS, **main_kw,
+                    backend="scan")
+    sub_wall = time.perf_counter() - t0
+    rows = (Ellipsis, SUB_SEEDS)
+    for k in ("energy", "work", "exec_time", "n_steps"):
+        check(np.array_equal(getattr(sub, k), getattr(res, k)[rows]),
+              f"scan sub-grid {k} != the full grid's rows")
+    for k in ("progress_mean", "progress_std", "power_mean",
+              "progress_hist", "pcap_hist"):
+        full = res.summary[k]
+        check(np.array_equal(sub.summary[k],
+                             full[:, :, SUB_SEEDS] if full.ndim == 4
+                             else full[rows]),
+              f"scan sub-grid summary {k} != the full grid's rows")
+    print(f"[paper] scan sub-grid of {len(SUB_SEEDS)} seeds x 33 (profile,"
+          f" eps) = {len(SUB_SEEDS) * 33} runs: bit-equal to the full "
+          f"grid's rows ({sub_wall:.3f} s wall)")
+    del res, sub
+    t0 = time.perf_counter()
+    short = dict(main_kw, max_time=float(PROFILE_STEPS))
+    prof = device_breakdown(
+        lambda: sim.sweep(*main_grid, **short, backend="scan"),
+        f"scan sweep, {n_runs} runs x {PROFILE_STEPS} steps",
+        host_ops=False)
+    if prof is not None:
+        print(f"[paper] scan engine: {prof['launches'] / PROFILE_STEPS:.1f} "
+              f"device launches per step ({prof['launches']} in "
+              f"{PROFILE_STEPS} steps, set-up included), device idle "
+              f"{100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}% of the "
+              f"profiled wall ({time.perf_counter() - t0:.1f} s with the "
+              f"profiler's own work)")
+
+    # ---- Fig. 7 at full size, on both engines -----------------------------
+    t0 = time.perf_counter()
+    names = ("gros", "dahu")
+    base = {}
+    for name in names:
+        p = PROFILES[name]
+        trs = sim.open_loop_runs(p, 2000, range(FIG7_REPS), device=dev)
+        work = np.cumsum(trs["progress"].cpu().numpy(), axis=1)
+        t_max = float(np.mean([np.searchsorted(w, FIG7_WORK)
+                               for w in work]))
+        base[name] = (t_max, float(p.power_of_pcap(p.pcap_max)) * t_max)
+    walls["fig7 baseline"] = time.perf_counter() - t0
+    for backend in ("kernel", "scan"):
+        t0 = time.perf_counter()
+        K.LAUNCHES = 0
+        r = sim.sweep(names, FIG7_EPS, range(FIG7_REPS),
+                      total_work=FIG7_WORK, max_time=FIG7_TIME,
+                      collect_traces=False, backend=backend)
+        walls[f"fig7 {backend}"] = time.perf_counter() - t0
+        check(K.LAUNCHES == (1 if backend == "kernel" else 0),
+              f"fig7 {backend}: {K.LAUNCHES} closed-loop kernel launches")
+        check(bool(r.completed.all()), f"fig7 {backend}: runs incomplete")
+        for pi, name in enumerate(names):
+            runs = [RunSummary(
+                epsilon=eps, exec_time=float(r.exec_time[pi, ei, si]),
+                energy=float(r.energy[pi, ei, si]),
+                mean_progress=float(r.summary["progress_mean"][pi, ei, si]),
+                mean_power=float(r.summary["power_mean"][pi, ei, si]),
+                joules_per_work=float(r.energy[pi, ei, si]
+                                      / r.work[pi, ei, si]))
+                for ei, eps in enumerate(FIG7_EPS)
+                for si in range(FIG7_REPS)]
+            table = tradeoff_table(runs)
+            keys = sorted(table)
+            check(table[keys[-1]]["energy_saving"]
+                  >= table[keys[1]]["energy_saving"] - 0.05,
+                  f"fig7 {backend} {name}: trade-off direction")
+            t_max, e_max = base[name]
+            t10 = table[0.1]
+            print(f"[paper] fig7 {backend} {name} ({len(FIG7_EPS)} eps x "
+                  f"{FIG7_REPS} reps, work {FIG7_WORK:.0f}): eps 0.1 vs max "
+                  f"power: energy saving {1 - t10['energy_j'] / e_max:.4f},"
+                  f" time increase {t10['time_s'] / t_max - 1:.4f}; vs eps 0"
+                  f" control: energy saving {t10['energy_saving']:.4f}, time "
+                  f"increase {t10['time_increase']:.4f}")
+    print(f"[paper] walls: " + ", ".join(f"{k} {v:.3f} s"
+                                          for k, v in walls.items())
+          + f", scan sweep {scan_wall:.3f} s, its sub-grid {sub_wall:.3f} "
+          f"s; phase 11 in {time.perf_counter() - started:.1f} s; on {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1356,6 +1604,10 @@ def main() -> int:
               + f"; energy eps=0 {em[0]:.6g} J -> eps=0.5 {em[-1]:.6g} J")
     main_out = {"energy": res.energy, "work": res.work,
                 "t": res.exec_time, "steps": res.n_steps}
+    # seed means per (profile, eps), for phase 11's scan engine
+    kernel_means = {"progress_mean": res.summary["progress_mean"].mean(-1),
+                    "power_mean": res.summary["power_mean"].mean(-1),
+                    "energy": res.energy.mean(-1)}
     del res
     device_breakdown(lambda: sim.sweep(*main_grid, **main_kw),
                      "sweep, 101,376 runs x 2,048 steps, seeds route")
@@ -1510,6 +1762,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     scan_err = scan_parity(dev, scan_lib)                 # phase 9
     scan_row = jamba_serving(dev, scan_err)               # phase 10
+    torch.cuda.empty_cache()
+    paper_workflow(dev, main_grid, main_kw, kernel_means, smi)  # phase 11
 
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f}"
           f" s, the kernels' build included")

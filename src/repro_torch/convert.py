@@ -7,8 +7,11 @@ noise array from the reference's ``draw_noise`` — and returns the
 port's tensors, so both packages compute from identical inputs.
 `params_from_reference` and `cache_from_reference` do the same for the
 LM substrate's parameter and KV-cache trees (dicts and tuples of
-arrays). Nothing here imports the reference: it only reads arrays
-through ``np.asarray``.
+arrays), `carry_from_reference` for the scan engine's per-run state
+(the reference's typed-PI ``_Carry``), and `static_fit_from_reference`
+for an identified static characteristic. Nothing here imports the
+reference: it only reads arrays through ``np.asarray`` and fields by
+name.
 """
 from __future__ import annotations
 
@@ -65,3 +68,37 @@ def cache_from_reference(cache, device: Union[None, str, torch.device] = None
     dev = resolve_device(device)
     return {"blocks": tree_map(lambda a: _tensor(a, dev), cache["blocks"]),
             "pos": int(np.asarray(cache["pos"]))}
+
+
+def carry_from_reference(carry, device: Union[None, str, torch.device] = None
+                         ):
+    """The reference's scan-engine carry (`repro.core.sim._Carry` on its
+    typed fixed-gain PI path; (B,) leaves, or scalars for one run) -> the
+    port's `repro_torch.core.sim._Carry` on ``device``, with the same
+    dtypes: bool flags, int32 step counts, float32 otherwise."""
+    from repro_torch.core import sim
+    from repro_torch.core.controller import PIState
+    from repro_torch.core.plant import PlantState
+    dev = resolve_device(device)
+
+    def leaf(x):
+        a = np.array(np.asarray(x))
+        if a.dtype == np.bool_ or a.dtype == np.int32:
+            return torch.from_numpy(a).to(dev)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    def group(cls, nt):
+        return cls(*(leaf(getattr(nt, f)) for f in cls._fields))
+
+    return sim._Carry(
+        plant=group(PlantState, carry.plant), pol=group(PIState, carry.pol),
+        summ=group(sim._Summary, carry.summ),
+        **{f: leaf(getattr(carry, f)) for f in sim._Carry._fields
+           if f not in ("plant", "pol", "summ")})
+
+
+def static_fit_from_reference(fit):
+    """The reference's `repro.core.identify.StaticFit` -> the port's."""
+    from repro_torch.core.identify import StaticFit
+    return StaticFit(**{f: float(getattr(fit, f))
+                        for f in StaticFit.__dataclass_fields__})

@@ -21,5 +21,7 @@ def gains_values(gains: PIGains) -> torch.Tensor:
 
 
 def unpack_gains(vals) -> PIGains:
-    """Inverse of `gains_values` (fields become 0-dim tensors)."""
-    return PIGains(**{f: vals[i] for i, f in enumerate(GAIN_FIELDS)})
+    """Inverse of `gains_values`: a (..., GAIN_DIM) vector or batch of
+    rows -> a PIGains whose fields are (...) tensors (0-dim for one
+    vector)."""
+    return PIGains(**{f: vals[..., i] for i, f in enumerate(GAIN_FIELDS)})

@@ -97,10 +97,12 @@ def plant_init(profile: PlantProfile, pcap0: Optional[float] = None
                ) -> PlantState:
     pcap0 = profile.pcap_max if pcap0 is None else pcap0
     p0 = profile.static_progress(pcap0)
+    # the state lies where (and has the shape that) the cap and profile give
+    zero = torch.zeros_like(p0)
     return PlantState(progress_l=_f32(p0 - profile.K_L),
-                      dropped=torch.tensor(False),
-                      energy=_f32(0.0),
-                      work=_f32(0.0))
+                      dropped=torch.zeros_like(p0, dtype=torch.bool),
+                      energy=zero,
+                      work=zero)
 
 
 def pcap_linearize(profile: PlantProfile, pcap):
@@ -131,8 +133,12 @@ def plant_step(profile: PlantProfile, state: PlantState, pcap, dt,
     clean = new_pl + profile.K_L
     noise_p = (profile.noise_scale * torch.sqrt(_f32(profile.n_sockets))
                * z_prog)
-    progress = torch.clamp(torch.where(dropped, _f32(profile.drop_level),
-                                       clean) + noise_p, min=0.0)
+    # a float level stays a Python scalar, so it meets CUDA tensors too
+    level = profile.drop_level
+    if not isinstance(level, torch.Tensor):
+        level = float(level)
+    progress = torch.clamp(torch.where(dropped, level, clean) + noise_p,
+                           min=0.0)
 
     power_true = profile.power_of_pcap(pcap)
     power_meas = power_true + profile.power_noise * z_pow

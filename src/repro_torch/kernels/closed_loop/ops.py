@@ -41,25 +41,45 @@ _WORDS = {R.NZ_PROG: (0, 1), R.NZ_POW: (2, 3), R.NU_ENTER: (4,),
           R.NU_EXIT: (5,), R.NZ_HB: (6, 7)}
 
 
-def _noise_words(seeds: torch.Tensor, word: int, t0: int, t1: int
-                ) -> torch.Tensor:
-    """The 32-bit words (as int64) of stream ``word`` at steps [t0, t1)
-    for runs with int64 ``seeds`` -> (t1 - t0, B)."""
+def seed_keys(seeds: torch.Tensor, word: int, n_words: int = 1
+              ) -> torch.Tensor:
+    """The per-run keys of streams ``word`` .. ``word + n_words - 1`` for
+    runs with int64 ``seeds`` -> (n_words, B) int64 in [0, 2**32)."""
     s = seeds.to(torch.int64)
     k = mix32((s & M32) ^ 0x3C6EF372)
     k = mix32(k ^ ((s >> 32) & M32))
-    k = mix32((k + (word + 1) * 0x9E3779B9) & M32)         # (B,)
+    w = torch.arange(word + 1, word + 1 + n_words, dtype=torch.int64,
+                     device=seeds.device)
+    return mix32((k[None, :] + w[:, None] * 0x9E3779B9) & M32)
+
+
+def step_hash(t):
+    """The hash of step index ``t`` (a Python int or an int64 tensor) that
+    every stream's word at that step mixes with its key."""
+    return mix32((t * 0x27D4EB2F + 0x165667B1) & M32)
+
+
+def stream_words(keys: torch.Tensor, h) -> torch.Tensor:
+    """Words of the streams with keys ``keys`` at the step of hash ``h``."""
+    return mix32((keys + h) & M32)
+
+
+def _noise_words(seeds: torch.Tensor, word: int, t0: int, t1: int
+                 ) -> torch.Tensor:
+    """The 32-bit words (as int64) of stream ``word`` at steps [t0, t1)
+    for runs with int64 ``seeds`` -> (t1 - t0, B)."""
+    k = seed_keys(seeds, word)                              # (1, B)
     t = torch.arange(t0, t1, dtype=torch.int64, device=seeds.device)
-    h = mix32((t * 0x27D4EB2F + 0x165667B1) & M32)         # (Tc,)
-    return mix32((h[:, None] + k[None, :]) & M32)
+    return stream_words(k, step_hash(t)[:, None])           # (Tc, B)
 
 
 def draw_noise(seeds: Union[Sequence[int], torch.Tensor], T: int,
-               device: Union[str, torch.device, None] = None
-               ) -> torch.Tensor:
+               device: Union[str, torch.device, None] = None,
+               t0: int = 0) -> torch.Tensor:
     """Per-run noise streams: seeds (B,) -> (T, 5, B) float32 on
     ``device`` (default: the seeds' device if they are a tensor, else
-    CUDA, raising without one, as the entry points do).
+    CUDA, raising without one, as the entry points do), for steps
+    [t0, t0 + T) of each stream.
 
     Channels (`ref.NZ_*`): progress-noise z, power-noise z, drop-enter
     u, drop-exit u, heartbeat z. Uniforms lie in [0, 1); normals come
@@ -75,16 +95,17 @@ def draw_noise(seeds: Union[Sequence[int], torch.Tensor], T: int,
     out = torch.empty((T, R.N_NOISE, B), dtype=torch.float32,
                       device=seeds.device)
     step = max(1, _CHUNK_ELEMS // max(B, 1))
-    for t0 in range(0, T, step):
-        t1 = min(T, t0 + step)
+    for c0 in range(0, T, step):
+        c1 = min(T, c0 + step)
         for ch, words in _WORDS.items():
-            u = unit24(_noise_words(seeds, words[0], t0, t1))
+            u = unit24(_noise_words(seeds, words[0], t0 + c0, t0 + c1))
             if len(words) == 2:
-                u2 = unit24(_noise_words(seeds, words[1], t0, t1))
+                u2 = unit24(_noise_words(seeds, words[1], t0 + c0,
+                                         t0 + c1))
                 # Box-Muller; 1 - u lies in (0, 1], so the log is finite
                 u = (torch.sqrt(-2.0 * torch.log(1.0 - u))
                      * torch.cos((2.0 * math.pi) * u2))
-            out[t0:t1, ch] = u
+            out[c0:c1, ch] = u
     return out
 
 

@@ -2,7 +2,9 @@
 the closed-loop kernel, flash attention (both routes) and split-KV decode
 attention (the attention bar is `repro_torch.kernels.attention_cases`), the
 selective scan (its bar is `repro_torch.kernels.selective_scan.cases`),
-and the serving paths through them. Every test here needs a CUDA device and
+and the serving paths through them; then the paper's identification and
+evaluation path on the card (the scan engine, the Poisson sampler, the
+static fit). Every test here needs a CUDA device and
 skips without one; the file imports no jax, so it runs where only torch
 is installed:
 
@@ -542,3 +544,135 @@ def test_jamba_serving_path_runs_through_the_kernels(dev):
     assert FK.ROUTE_LAUNCHES["simt"] - w0 == 1
     want = serve.main(argv, device="cpu")["generated"]
     np.testing.assert_array_equal(got, want)
+
+
+# ---- the identification and evaluation path (no kernel of its own) ----
+
+def test_scan_engine_sub_grid_equals_one_shot_on_the_card(dev):
+    """Every run's plant noise and Poisson counts ride with its seed, and
+    every op is elementwise per run: a sub-grid reproduces the one-shot
+    rows bit for bit on the card, and no closed-loop kernel launches."""
+    kw = dict(total_work=1e9, max_time=300.0, summary_warmup=30,
+              backend="scan")
+    before = K.LAUNCHES
+    full = sim.sweep(["gros", "dahu", "yeti"], [0.1, 0.3], range(64), **kw)
+    sub = sim.sweep(["dahu", "yeti"], [0.3], [63, 5, 17], **kw)
+    assert K.LAUNCHES == before
+    for k in ("progress", "power", "energy", "pcap", "valid"):
+        np.testing.assert_array_equal(sub.traces[k][:, 0],
+                                      full.traces[k][1:, 1, [63, 5, 17]],
+                                      err_msg=k)
+    for k in ("progress_hist", "pcap_hist", "progress_mean"):
+        np.testing.assert_array_equal(sub.summary[k][:, 0],
+                                      full.summary[k][1:, 1, [63, 5, 17]])
+
+
+def test_scan_engine_on_the_card_matches_the_cpu(dev):
+    """The same runs on the card and on the CPU: the same integer streams,
+    float paths that differ by ulps (a Poisson count can move by one, and
+    the runs then part), so seed means at rtol 0.01."""
+    kw = dict(total_work=1e9, max_time=256.0, summary_warmup=30,
+              collect_traces=False, backend="scan")
+    a = sim.sweep(["gros", "yeti"], [0.1, 0.3], range(32), device=dev, **kw)
+    b = sim.sweep(["gros", "yeti"], [0.1, 0.3], range(32), device="cpu",
+                  **kw)
+    for k in ("progress_mean", "power_mean"):
+        np.testing.assert_allclose(a.summary[k].mean(-1),
+                                   b.summary[k].mean(-1), rtol=0.01)
+    np.testing.assert_allclose(a.energy.mean(-1), b.energy.mean(-1),
+                               rtol=0.01)
+
+
+def test_scan_step_loop_makes_no_host_sync(dev):
+    """The step loop never waits on the host: over a whole run the only
+    synchronizing call is the one check that every Poisson draw
+    resolved."""
+    import warnings
+    prof, gains, seeds = sim.grid_rows(["gros", "yeti"], [0.1], range(128))
+    prof, gains, seeds = prof.to(dev), gains.to(dev), seeds.to(dev)
+    run = sim._scan_core(256, collect=False)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(prof, gains, seeds, 1e9, 256.0, 1.0, 30.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.3, 3.0, 9.9, 10.0, 40.0, 1800.0,
+                                 7000.0])
+def test_poisson_sampler_on_the_card(dev, lam):
+    """2e5 draws: mean and variance within 5 standard errors of lam, the
+    same integer counts as on the CPU (the same uniforms; the float paths
+    differ by ulps) for at least 99.9% of draws, 99% at lam >= 1,000,
+    where PTRS's log-ratio t = -lam + k log lam - lgamma(k + 1) cancels
+    terms of ~6e4 in float32 (an ulp of lgamma is ~4e-3 of it; 0.27% of
+    the draws at lam = 7,000 moved on an H100), none left unresolved."""
+    from repro_torch.core.poisson import PoissonStream
+    seeds = torch.arange(20000)
+    x = PoissonStream(seeds.to(dev))
+    y = PoissonStream(seeds)
+    rate = torch.full((20000,), lam)
+    a = torch.cat([x(rate.to(dev), s) for s in range(10)]).cpu().numpy()
+    b = torch.cat([y(rate, s) for s in range(10)]).numpy()
+    x.check()
+    n = a.size
+    if lam == 0:
+        assert (a == 0).all()
+        return
+    assert abs(a.mean() - lam) < 5 * np.sqrt(lam / n)
+    assert abs(a.var() - lam) < 5 * np.sqrt((lam + 2 * lam * lam) / n)
+    assert (a == b).mean() >= (0.99 if lam >= 1000 else 0.999)
+
+
+def test_fit_static_on_the_card_matches_the_cpu(dev):
+    """The float32 Gauss-Newton fit on the card against the CPU port on the
+    same campaign: rtol 1e-4 on the fitted parameters, 1e-6 on R^2 (the
+    CPU port holds the reference to the same bars); its loop makes no
+    host sync."""
+    import warnings
+    from repro_torch.core import identify
+    from repro_torch.core.plant import PROFILES
+    for name in ("gros", "dahu"):
+        caps, powers, progs = identify.static_campaign(PROFILES[name],
+                                                       device="cpu")
+        a = identify.fit_static(caps, powers, progs, device=dev)
+        b = identify.fit_static(caps, powers, progs, device="cpu")
+        assert (a.a, a.b) == (b.a, b.b)
+        for f in ("K_L", "alpha", "beta"):
+            assert getattr(a, f) == pytest.approx(getattr(b, f), rel=1e-4)
+        assert a.r2 == pytest.approx(b.r2, rel=1e-6)
+    p = torch.tensor([3.2, -3.0, 28.0], device=dev)
+    lams = torch.tensor([[1.0], [0.5], [0.25], [0.1], [0.03]], device=dev)
+    pw = torch.as_tensor(powers, dtype=torch.float32).to(dev)
+    pg = torch.as_tensor(progs, dtype=torch.float32).to(dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            identify._gauss_newton(p, pw, pg, lams, 20)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in seen if "synchroniz" in str(w.message)
+                and "prototype" not in str(w.message)]
+
+
+def test_open_loop_and_replay_on_the_card_match_the_cpu(dev):
+    """open_loop_runs and replay_model on the card against the CPU: the
+    same noise words, float paths that differ by ulps (rtol 1e-5)."""
+    a = sim.open_loop_runs("yeti", 200, range(16), pcap=90.0, device=dev)
+    b = sim.open_loop_runs("yeti", 200, range(16), pcap=90.0, device="cpu")
+    for k in a:
+        np.testing.assert_allclose(a[k].cpu().numpy(), b[k].numpy(),
+                                   rtol=1e-5, atol=1e-4, err_msg=k)
+    sched = np.repeat(np.random.default_rng(0).uniform(40, 120, 60), 4)
+    np.testing.assert_allclose(
+        sim.replay_model("gros", sched, device=dev).cpu().numpy(),
+        sim.replay_model("gros", sched, device="cpu").numpy(), rtol=1e-5,
+        atol=1e-4)

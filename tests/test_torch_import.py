@@ -26,7 +26,11 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.kernels.decode_attention, "
             "repro_torch.kernels.selective_scan, "
             "repro_torch.kernels.selective_scan.cases, "
-            "repro_torch.models.mamba, repro_torch.models.moe\n"
+            "repro_torch.models.mamba, repro_torch.models.moe, "
+            "repro_torch.obs, repro_torch.obs.metrics, "
+            "repro_torch.obs.trace, repro_torch.obs.retry, "
+            "repro_torch.core.identify, repro_torch.core.signals, "
+            "repro_torch.core.poisson\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -70,6 +74,22 @@ def test_entry_points_refuse_to_run_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim.simulate_closed_loop("gros", 0.1, total_work=10.0,
                                  max_time=64.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.sweep("gros", [0.1], [0], total_work=10.0, max_time=64.0,
+                  backend="scan")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.open_loop_runs("gros", 40, range(3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.replay_model("gros", [60.0, 80.0])
+    from repro_torch.core import identify, signals
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        identify.fit_static([40, 80, 120], [40, 75, 107], [10, 20, 24])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        identify.pearson([1.0, 2.0], [2.0, 1.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        identify.static_campaign("gros")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        signals.progress_from_times([0.0, 0.5, 1.0])
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import serve
     from repro_torch.models import init_params

@@ -193,7 +193,7 @@ def test_pareto_front_extraction():
     dict(workloads=object()), dict(detector=object()),
     dict(faults=object()), dict(guard=True), dict(record_events=True),
     dict(chunk_size=4), dict(devices="all"), dict(durable="/nonexistent"),
-    dict(backend="scan")])
+    dict(backend="scan", adaptive=object())])
 def test_sweep_rejects_what_the_kernel_cannot_run(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.sweep("gros", [0.1], [0], total_work=100.0, max_time=64.0,
