@@ -85,7 +85,24 @@ Phases, each of which fails the run if a check fails:
    device activity only, over the main grid cut to 256 steps), and
    Fig. 7 at the reference's
    full size on both engines with its open-loop baseline (all runs
-   complete, the trade-off direction holds).
+   complete, the trade-off direction holds);
+12. policies and adaptation on the card, which bring no kernel of their
+   own: phase 3's main grid through the policy front end
+   (`sweep(policies=PIPolicy())`: one seeds-route launch, every run equal
+   to phase 3's); `benchmarks/beyond_adaptive.py`'s gain shift (gros
+   gains on a plant with twice gros's K_L, work 6,000; RLS-adaptive PI
+   within 1.05x the fixed gains' time) and its `--full` RLS lambda grid
+   (gros, dahu x 5 eps x 10 lambdas x 1,000 seeds = 100,000 runs on the
+   scan engine: all finite, a 97-seed sub-grid bit-equal; wall, runs/s,
+   peak memory, the best lambda, launches per step and idle share from a
+   256-step profile); `benchmarks/policy_faceoff.py`'s `--full` face-off
+   (PI traces harvested on gros, dahu, yeti x 8 seeds, offline RL fitted
+   on the card with 100 iterations, PI, offline RL and duty-cycle raced
+   x 30 seeds in one heterogeneous sweep: PI and duty-cycle complete,
+   duty-cycle below 0.9 x pcap_max at eps 0.3, the PI lane of a mixed
+   sweep bit-equal to a pure packed-PI sweep; per (profile, policy) time,
+   energy and median progress over the setpoint; the race's launches
+   per step).
 
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
@@ -1235,6 +1252,17 @@ PROFILE_STEPS = 256
 # streams (Poisson heartbeats against rounded Gaussians), as the port's
 # CPU test compares the two engines
 ENGINE_RTOL = 0.05
+# phase 12: `benchmarks/beyond_adaptive.py`'s RLS lambda grid at its
+# `--full` size and its gain-shift scenario, `benchmarks/
+# policy_faceoff.py` at its `--full` size
+LAMS = (0.9, 0.95, 0.97, 0.98, 0.99, 0.992, 0.995, 0.997, 0.999, 0.9995)
+LAM_GRID = (("gros", "dahu"), (0.02, 0.05, 0.1, 0.15, 0.2), range(1000))
+LAM_KW = dict(total_work=1200.0, max_time=1024.0, collect_traces=False)
+# 97 of the lambda grid's 1,000 seeds (every 10th below 960, and the last)
+LAM_SUB = list(range(0, 960, 10)) + [999]
+SHIFT_KW = dict(total_work=6000.0, max_time=1024.0, seed=6)
+RACE_PROFS, RACE_EPS = ("gros", "dahu", "yeti"), 0.1
+RACE_KW = dict(total_work=2000.0, max_time=1024.0)
 
 
 def paper_workflow(dev, main_grid, main_kw, kernel_means, smi) -> None:
@@ -1443,6 +1471,216 @@ def paper_workflow(dev, main_grid, main_kw, kernel_means, smi) -> None:
           f"s; phase 11 in {time.perf_counter() - started:.1f} s; on {smi}")
 
 
+def policies_phase(dev, main_grid, main_kw, main_out, main_summary,
+                   smi) -> None:
+    """Phase 12: policies and adaptation on the card (no kernel of their
+    own; the pure-PI grid keeps the closed-loop kernel): the policy front
+    end on the main grid, the gain shift, the RLS lambda grid and the
+    policy face-off, through the port's entry points."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import sim
+    from repro_torch.core.adaptive import RLSConfig
+    from repro_torch.core.controller import PIGains
+    from repro_torch.core.plant import PROFILES
+    from repro_torch.core.policies import (DutyCyclePolicy, PIPolicy,
+                                           build_dataset, fit_offline_rl)
+    from repro_torch.kernels.closed_loop import kernel as K
+    started = time.perf_counter()
+    walls = {}
+
+    # ---- a. the kernel through the policy front end ----------------------
+    K.ROUTE_LAUNCHES.update(seeds=0, noise=0)
+    t0 = time.perf_counter()
+    res = sim.sweep(*main_grid, **main_kw, policies=PIPolicy())
+    walls["main grid, policies=PIPolicy()"] = time.perf_counter() - t0
+    check(dict(K.ROUTE_LAUNCHES) == {"seeds": 1, "noise": 0},
+          f"policies=PIPolicy() launches by route {K.ROUTE_LAUNCHES}")
+    got = {"energy": res.energy, "work": res.work, "t": res.exec_time,
+           "steps": res.n_steps}
+    for k, v in main_out.items():
+        check(np.array_equal(got[k], v), f"policies=PIPolicy() {k} != "
+              f"phase 3's")
+    for k, v in main_summary.items():
+        check(np.array_equal(res.summary[k], v), f"policies=PIPolicy() "
+              f"summary {k} != phase 3's")
+    print(f"[policy] main grid through sweep(policies=PIPolicy()): "
+          f"{res.energy.size} runs, kernel launches by route "
+          f"{dict(K.ROUTE_LAUNCHES)}, every run equal to phase 3's")
+    del res
+
+    # ---- b. the gain shift (beyond_adaptive.py) --------------------------
+    t0 = time.perf_counter()
+    design = PROFILES["gros"]
+    shifted = dataclasses.replace(design, K_L=design.K_L * 2)
+    gains = PIGains.from_model(design, 0.1)
+    fixed = sim.simulate_closed_loop(shifted, gains=gains,
+                                     policy=PIPolicy(), **SHIFT_KW)
+    adapt = sim.simulate_closed_loop(shifted, gains=gains,
+                                     adaptive=RLSConfig(), design=design,
+                                     **SHIFT_KW)
+    walls["gain shift"] = time.perf_counter() - t0
+    check(fixed.completed and adapt.completed, "gain shift: incomplete")
+    check(adapt.exec_time <= 1.05 * fixed.exec_time,
+          f"gain shift: adaptive {adapt.exec_time} s > 1.05 x fixed "
+          f"{fixed.exec_time} s")
+    print(f"[policy] gain shift (gros gains, K_L x 2, work "
+          f"{SHIFT_KW['total_work']:.0f}, seed 6, scan engine): fixed gains {fixed.exec_time:.0f} s, RLS-adaptive "
+          f"{adapt.exec_time:.0f} s ({adapt.exec_time / fixed.exec_time:.4f}"
+          f" x, bar 1.05); final kl_hat {float(adapt.rls_state.kl_hat):.4f}"
+          f" Hz (plant {shifted.K_L}, design {design.K_L}), tau_hat "
+          f"{float(adapt.rls_state.tau_hat):.4f} s")
+
+    # ---- c. the RLS lambda grid at --full size ---------------------------
+    cfgs = [RLSConfig(lam=lam) for lam in LAMS]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sim.sweep(*LAM_GRID, adaptive=cfgs, **LAM_KW)
+    lam_wall = time.perf_counter() - t0
+    lam_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_runs = int(res.exec_time.size)
+    check(res.exec_time.shape == (2, 5, len(LAMS), len(LAM_GRID[2])),
+          "lambda grid "
+          f"shape {res.exec_time.shape}")
+    for k, v in (("exec_time", res.exec_time), ("energy", res.energy),
+                 ("progress_mean", res.summary["progress_mean"]),
+                 ("power_mean", res.summary["power_mean"])):
+        check(np.isfinite(v).all(), f"lambda grid {k} not finite")
+    per_lam = res.exec_time.mean(axis=(0, 1, 3))
+    best = int(per_lam.argmin())
+    print(f"[policy] RLS lambda grid {res.exec_time.shape} = {n_runs} runs"
+          f" (work {LAM_KW['total_work']:.0f}, horizon "
+          f"{LAM_KW['max_time']:.0f} s, summary) in {lam_wall:.3f} s wall "
+          f"({n_runs / lam_wall:.0f} runs/s), peak device memory "
+          f"{lam_peak:.3f} GiB; completed {res.completed.mean():.4f}; mean "
+          f"time by lambda: " + ", ".join(
+              f"{lam} {t:.2f} s" for lam, t in zip(LAMS, per_lam))
+          + f"; best lambda {LAMS[best]} ({per_lam[best]:.2f} s)")
+    t0 = time.perf_counter()
+    sub = sim.sweep(LAM_GRID[0], LAM_GRID[1], LAM_SUB, adaptive=cfgs,
+                    **LAM_KW)
+    sub_wall = time.perf_counter() - t0
+    for k in ("energy", "work", "exec_time", "n_steps"):
+        check(np.array_equal(getattr(sub, k), getattr(res, k)[..., LAM_SUB]),
+              f"lambda sub-grid {k} != the full grid's rows")
+    for k in ("progress_mean", "progress_std", "power_mean",
+              "progress_hist", "pcap_hist"):
+        full = res.summary[k]
+        check(np.array_equal(sub.summary[k],
+                             full[:, :, :, LAM_SUB] if full.ndim == 5
+                             else full[..., LAM_SUB]),
+              f"lambda sub-grid summary {k} != the full grid's rows")
+    print(f"[policy] lambda sub-grid of {len(LAM_SUB)} seeds x 100 = "
+          f"{sub.exec_time.size} runs: bit-equal to the full grid's rows "
+          f"({sub_wall:.3f} s wall)")
+    del res, sub
+    t0 = time.perf_counter()
+    steps = PROFILE_STEPS
+    prof = device_breakdown(
+        lambda: sim.sweep(*LAM_GRID, adaptive=cfgs,
+                          **dict(LAM_KW, max_time=float(steps))),
+        f"lambda grid, {n_runs} runs x {steps} steps", host_ops=False)
+    if prof is not None:
+        print(f"[policy] lambda grid (pi_rls): {prof['launches'] / steps:.1f}"
+              f" device launches per step ({prof['launches']} in {steps} "
+              f"steps, set-up included), device idle "
+              f"{100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}% of the "
+              f"profiled wall ({time.perf_counter() - t0:.1f} s with the "
+              f"profiler's own work)")
+
+    # ---- d. the policy face-off (policy_faceoff.py, --full) --------------
+    t0 = time.perf_counter()
+    har = sim.sweep(RACE_PROFS, [RACE_EPS], range(8), **RACE_KW,
+                    backend="scan")
+    parts = [build_dataset({k: v[i] for k, v in har.traces.items()},
+                           PROFILES[p], RACE_EPS)
+             for i, p in enumerate(RACE_PROFS)]
+    dataset = {k: np.concatenate([d[k] for d in parts]) for k in parts[0]}
+    t1 = time.perf_counter()
+    rl = fit_offline_rl(dataset, n_iters=100)
+    walls["harvest"], walls["fit_offline_rl"] = t1 - t0, (
+        time.perf_counter() - t1)
+    check(np.isfinite(rl.weights).all(), f"offline RL weights {rl.weights}")
+    print(f"[policy] harvested {len(dataset['s'])} transitions from "
+          f"{har.exec_time.size} PI runs; fitted Q on the card (100 "
+          f"iterations) in {walls['fit_offline_rl']:.3f} s: w = "
+          + ", ".join(f"{w:.4f}" for w in rl.weights))
+    del har
+    policies = [PIPolicy(), rl, DutyCyclePolicy()]
+    names = ("pi", "offline_rl", "dutycycle")
+    t0 = time.perf_counter()
+    res = sim.sweep(RACE_PROFS, [RACE_EPS], range(30), **RACE_KW,
+                    policies=policies, collect_traces=False,
+                    summary_warmup=30)
+    walls["race"] = time.perf_counter() - t0
+    check(res.exec_time.shape == (3, 1, 3, 30), "race shape")
+    for a in (0, 2):
+        check(bool(res.completed[:, :, a].all()), f"race: {names[a]} runs "
+              f"incomplete")
+    for pi_, pname in enumerate(RACE_PROFS):
+        setpoint = (1.0 - RACE_EPS) * PROFILES[pname].progress_max
+        cells = []
+        for a, name in enumerate(names):
+            med = sim.hist_quantile(res.summary["progress_hist"][pi_, 0, a],
+                                    res.summary["progress_edges"][pi_], 0.5)
+            cells.append(
+                f"{name} t {res.exec_time[pi_, 0, a].mean():.1f} s, E "
+                f"{res.energy[pi_, 0, a].mean():.0f} J, median progress / "
+                f"setpoint {np.median(med) / setpoint:.4f}, completed "
+                f"{res.completed[pi_, 0, a].mean():.2f}")
+        print(f"[policy] race {pname} (eps {RACE_EPS}, 30 seeds): "
+              + "; ".join(cells))
+    del res
+    # the PI lane of a mixed trace sweep against a pure packed-PI sweep,
+    # and duty-cycle's caps at eps 0.3
+    t0 = time.perf_counter()
+    kw = dict(RACE_KW, collect_traces=True)
+    mixed = sim.sweep(RACE_PROFS, [RACE_EPS, 0.3], range(8), **kw,
+                      policies=[PIPolicy(), DutyCyclePolicy()])
+    pure = sim.sweep(RACE_PROFS, [RACE_EPS, 0.3], range(8), **kw,
+                     policies=PIPolicy(), backend="scan")
+    walls["lane check"] = time.perf_counter() - t0
+    for k in pure.traces:
+        check(np.array_equal(mixed.traces[k][:, :, 0], pure.traces[k]),
+              f"mixed sweep's PI lane {k} != the pure packed-PI sweep")
+    gros = PROFILES["gros"]
+    dc = {k: v[0, 1, 1] for k, v in mixed.traces.items()}
+    tails = []
+    for s_ in range(8):
+        n = int(mixed.n_steps[0, 1, 1, s_])
+        check(bool(mixed.completed[0, 1, 1, s_]), "duty-cycle incomplete")
+        tails.append(float(dc["pcap"][s_, n // 2:n].mean()))
+    check(max(tails) < 0.9 * gros.pcap_max, f"duty-cycle at eps 0.3 keeps "
+          f"mean caps {tails} >= 0.9 x {gros.pcap_max}")
+    lanes = mixed.traces["pcap"].shape[:-1]
+    print(f"[policy] PI lane of [PIPolicy(), DutyCyclePolicy()] ({lanes}, "
+          f"traces) bit-equal to a pure "
+          f"packed-PI sweep; duty-cycle on gros at eps 0.3: mean cap over "
+          f"the second half {min(tails):.2f}-{max(tails):.2f} W (bar "
+          f"{0.9 * gros.pcap_max:.1f})")
+    del mixed, pure
+    t0 = time.perf_counter()
+    prof = device_breakdown(
+        lambda: sim.sweep(RACE_PROFS, [RACE_EPS], range(30),
+                          **dict(RACE_KW, max_time=float(PROFILE_STEPS)),
+                          policies=policies, collect_traces=False,
+                          summary_warmup=30),
+        f"race, 270 runs x {PROFILE_STEPS} steps", host_ops=False)
+    if prof is not None:
+        print(f"[policy] race (pi + offline_rl + dutycycle): "
+              f"{prof['launches'] / PROFILE_STEPS:.1f} device launches per"
+              f" step, device idle "
+              f"{100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}% of the "
+              f"profiled wall ({time.perf_counter() - t0:.1f} s)")
+    print(f"[policy] walls: " + ", ".join(f"{k} {v:.3f} s"
+                                           for k, v in walls.items())
+          + f", lambda grid {lam_wall:.3f} s, its sub-grid {sub_wall:.3f} "
+          f"s; phase 12 in {time.perf_counter() - started:.1f} s; on {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1604,6 +1842,9 @@ def main() -> int:
               + f"; energy eps=0 {em[0]:.6g} J -> eps=0.5 {em[-1]:.6g} J")
     main_out = {"energy": res.energy, "work": res.work,
                 "t": res.exec_time, "steps": res.n_steps}
+    main_summary = {k: res.summary[k] for k in (
+        "progress_mean", "progress_std", "power_mean", "progress_hist",
+        "pcap_hist")}
     # seed means per (profile, eps), for phase 11's scan engine
     kernel_means = {"progress_mean": res.summary["progress_mean"].mean(-1),
                     "power_mean": res.summary["power_mean"].mean(-1),
@@ -1764,6 +2005,8 @@ def main() -> int:
     scan_row = jamba_serving(dev, scan_err)               # phase 10
     torch.cuda.empty_cache()
     paper_workflow(dev, main_grid, main_kw, kernel_means, smi)  # phase 11
+    policies_phase(dev, main_grid, main_kw, main_out, main_summary,
+                   smi)                                   # phase 12
 
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f}"
           f" s, the kernels' build included")

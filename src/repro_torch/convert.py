@@ -8,8 +8,9 @@ port's tensors, so both packages compute from identical inputs.
 `params_from_reference` and `cache_from_reference` do the same for the
 LM substrate's parameter and KV-cache trees (dicts and tuples of
 arrays), `carry_from_reference` for the scan engine's per-run state
-(the reference's typed-PI ``_Carry``), and `static_fit_from_reference`
-for an identified static characteristic. Nothing here imports the
+(the reference's ``_Carry``, typed PI or packed policy state),
+`policy_values_from_reference` for a grid of packed policy values, and
+`static_fit_from_reference` for an identified static characteristic. Nothing here imports the
 reference: it only reads arrays through ``np.asarray`` and fields by
 name.
 """
@@ -72,10 +73,13 @@ def cache_from_reference(cache, device: Union[None, str, torch.device] = None
 
 def carry_from_reference(carry, device: Union[None, str, torch.device] = None
                          ):
-    """The reference's scan-engine carry (`repro.core.sim._Carry` on its
-    typed fixed-gain PI path; (B,) leaves, or scalars for one run) -> the
-    port's `repro_torch.core.sim._Carry` on ``device``, with the same
-    dtypes: bool flags, int32 step counts, float32 otherwise."""
+    """The reference's scan-engine carry (`repro.core.sim._Carry`; (B,)
+    leaves, or scalars for one run) -> the port's
+    `repro_torch.core.sim._Carry` on ``device``, with the same dtypes:
+    bool flags, int32 step counts, float32 otherwise. Its policy state is
+    the typed `PIState` of the fixed-gain PI fast path or the packed (B,
+    POLICY_STATE_DIM) vector; the detector, fault, guard and recorder
+    fields must be None (the port does not carry them yet)."""
     from repro_torch.core import sim
     from repro_torch.core.controller import PIState
     from repro_torch.core.plant import PlantState
@@ -90,11 +94,28 @@ def carry_from_reference(carry, device: Union[None, str, torch.device] = None
     def group(cls, nt):
         return cls(*(leaf(getattr(nt, f)) for f in cls._fields))
 
+    for f in ("det", "fstate", "guard", "events"):
+        if getattr(carry, f, None) is not None:
+            raise NotImplementedError(
+                f"the reference carry holds {f} state, which the port's "
+                "scan engine does not carry yet (ROADMAP Queue 1 items 5-6)")
+    pol = (group(PIState, carry.pol) if hasattr(carry.pol, "_fields")
+           else leaf(carry.pol))
     return sim._Carry(
-        plant=group(PlantState, carry.plant), pol=group(PIState, carry.pol),
+        plant=group(PlantState, carry.plant), pol=pol,
         summ=group(sim._Summary, carry.summ),
         **{f: leaf(getattr(carry, f)) for f in sim._Carry._fields
            if f not in ("plant", "pol", "summ")})
+
+
+def policy_values_from_reference(vals, device: Union[None, str,
+                                                     torch.device] = None
+                                 ) -> torch.Tensor:
+    """The reference's packed policy values (`repro.core.policies.
+    policy_values` rows, (..., POLICY_PARAM_DIM) float32) -> the same
+    rows as a float32 tensor on ``device`` (CUDA unless told otherwise),
+    kinds at slot 0 as given."""
+    return _tensor(vals, resolve_device(device))
 
 
 def static_fit_from_reference(fit):

@@ -1,10 +1,12 @@
 """Closed-loop simulation front end (paper Figs. 5-7 at fleet scale);
-port of the fixed-gain-PI path of `repro.core.sim`.
+port of `repro.core.sim`: the fixed-gain PI path and the power policies
+(`repro_torch.core.policies`: PI, RLS-adaptive PI, duty-cycle,
+offline RL).
 
 The paper's evaluation is thousands of closed-loop runs sweeping the
 degradation grid eps across clusters and seeds. Two engines run them:
 
-* ``backend="kernel"`` (the default): the fused closed-loop op
+* ``backend="kernel"``: the fused closed-loop op
   (`repro_torch.kernels.closed_loop`): on CUDA the hand-written kernel,
   which generates each run's noise stream (`ops.draw_noise` of its seed)
   inside the kernel, so no noise tensor exists; on the CPU its plain
@@ -15,15 +17,23 @@ degradation grid eps across clusters and seeds. Two engines run them:
   `_scan_core`), a step loop of PyTorch ops over the batch of runs on the
   device: the Eq. 3 plant on `draw_noise`'s plant channels, exact
   Poisson heartbeat counts (`repro_torch.core.poisson`), the Eq. 1
-  window median, the Eq. 4 PI, early exit and the online summaries. It
-  is the engine of every paper figure in the reference, and the carrier
-  later slices extend (policies, phased workloads, faults).
+  window median, the controller (the typed Eq. 4 PI, or any policy
+  branch set through the packed policy state), early exit and the online
+  summaries. It is the engine of every paper figure in the reference,
+  and the carrier later slices extend (phased workloads, faults).
+
+``backend="auto"`` (the default) is the reference's capability
+dispatch, with the card in the TPU's place: a grid whose policies are
+all fixed-gain PI (branch set ``("pi",)``) runs the kernel route, any
+other grid the scan engine.
 
 Entry points:
 
 * `simulate_closed_loop(profile, ...)` — one run; trimmed numpy traces.
-* `sweep(profiles, epsilons, seeds, ...)` — the profiles x epsilons x
-  seeds grid as one batch of runs, in trace or summary mode.
+  ``adaptive=RLSConfig(...)`` / ``policy=`` run it on the scan engine.
+* `sweep(profiles, epsilons, seeds, ...)` — the profiles x epsilons
+  [x policies] x seeds grid as one batch of runs, in trace or summary
+  mode; ``policies=`` / ``adaptive=`` add the policy axis.
 * `engine_step(...)` — the scan engine's fused single-period step.
 * `open_loop_runs(profile, steps, seeds)` — constant-cap open-loop runs
   batched over seeds (the full-power baseline of Fig. 7).
@@ -50,8 +60,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import policies as pol
+from repro_torch.core.adaptive import RLSConfig, RLSState, rls_unpack
 from repro_torch.core.controller import PIGains, PIState, pi_init, pi_step
-from repro_torch.core.plane import gains_values, unpack_gains
+from repro_torch.core.plane import gains_values, plane_step, unpack_gains
+from repro_torch.core.policies.pi import PI_RLS_HI, PI_RLS_LO, PIPolicy
 from repro_torch.core.plant import (PROFILE_FIELDS, PROFILES, PlantProfile,
                                     PlantState, pcap_linearize, plant_init,
                                     plant_step, simulate)
@@ -63,10 +76,6 @@ from repro_torch.kernels.closed_loop.ref import (CAP_BINS, PROG_BINS,
 
 # ROADMAP items that bring what this path does not cover yet.
 _TODO = {
-    "adaptive": "Queue 1 item 4 (policies and adaptation)",
-    "policies": "Queue 1 item 4 (policies and adaptation)",
-    "policy": "Queue 1 item 4 (policies and adaptation)",
-    "design": "Queue 1 item 4 (policies and adaptation)",
     "workloads": "Queue 1 item 5 (phased workloads and detection)",
     "workload": "Queue 1 item 5 (phased workloads and detection)",
     "detector": "Queue 1 item 5 (phased workloads and detection)",
@@ -85,8 +94,7 @@ _TODO = {
 
 
 def _reject(**given) -> None:
-    """Raise for the first argument outside the closed-loop kernel's
-    capability (the reference's `pallas_ok` check)."""
+    """Raise for the first argument the port does not cover yet."""
     for name, value in given.items():
         if value is not None and value is not False:
             raise NotImplementedError(
@@ -94,10 +102,12 @@ def _reject(**given) -> None:
 
 
 def _check_backend(backend: str) -> None:
-    if backend not in ("kernel", "scan"):
+    if backend not in ("auto", "kernel", "scan"):
         raise ValueError(f"unknown backend {backend!r}; the port has "
-                         "backend='kernel' (the fused closed-loop op) and "
-                         "backend='scan' (the Poisson-heartbeat engine)")
+                         "backend='kernel' (the fused closed-loop op), "
+                         "backend='scan' (the Poisson-heartbeat engine) "
+                         "and backend='auto' (the kernel where it covers "
+                         "the grid, else the scan engine)")
 
 
 def profile_values(profile: PlantProfile) -> torch.Tensor:
@@ -170,19 +180,24 @@ class SimResult:
     work: float
     completed: bool
     n_steps: int
-    pi_state: PIState
+    pi_state: Optional[PIState]  # None for non-PI policies
     plant_state: PlantState
     pcap: float
     summary: Dict[str, np.ndarray] = dataclasses.field(
         default_factory=dict)
+    # final estimator (adaptive runs), numpy fields
+    rls_state: Optional[RLSState] = None
+    # final packed (POLICY_STATE_DIM,) policy state
+    policy_state: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class SweepResult:
-    """Batched runs over profiles x epsilons x seeds.
+    """Batched runs over profiles x epsilons [x policies] x seeds.
 
-    Arrays have shape (P, E, S) — traces (P, E, S, T) — with the P axis
-    squeezed away when a single profile was passed. Frozen
+    Arrays have shape (P, E, S) — or (P, E, A, S) for policy/adaptive
+    grids; traces (..., T) — with the P (and A) axes squeezed away when a
+    single profile (single Policy/RLSConfig) was passed. Frozen
     (post-completion) steps carry `valid == False`. In summary mode
     (`collect_traces=False`) `traces` is None and only `summary` (plus
     the scalar reductions) is materialized."""
@@ -280,11 +295,12 @@ def _hist_add(hist, x, lo, hi, nbins, live):
 
 
 class _Carry(NamedTuple):
-    """The engine's per-run state, (B,) leaves: the fixed-gain PI path's
-    (the typed `PIState`; the packed policy vector, the detector, fault,
-    guard and recorder state come with later slices)."""
+    """The engine's per-run state, (B,) leaves. ``pol`` is the typed
+    `PIState` (the fixed-gain PI fast path) or the packed (B,
+    POLICY_STATE_DIM) policy state; the detector, fault, guard and
+    recorder state come with later slices."""
     plant: PlantState
-    pol: PIState
+    pol: Union[PIState, torch.Tensor]
     pcap: torch.Tensor        # command applied next period [W]
     anchor_gap: torch.Tensor  # time from last beat to window start [s]
     has_anchor: torch.Tensor  # bool: any beat ever fired
@@ -294,32 +310,30 @@ class _Carry(NamedTuple):
     summ: _Summary
 
 
-def _default_init(profile: PlantProfile, gains: PIGains) -> _Carry:
-    """Fresh carry for runs with (B,)-tensor profile and gain fields."""
+def _default_init(profile: PlantProfile, gains: PIGains, policy=("pi",),
+                  policy_vals=None, typed_pi: Optional[bool] = None
+                  ) -> _Carry:
+    """Fresh carry for runs with (B,)-tensor profile and gain fields: the
+    typed `PIState` on the fast path, else ``policy``'s packed init from
+    its (B, POLICY_PARAM_DIM) ``policy_vals`` rows (zeros when None).
+    ``typed_pi=None`` picks the typed path for ``("pi",)`` without
+    values (the port's engine entry points default to it)."""
     ps = plant_init(profile)
     z = torch.zeros_like(ps.progress_l)
     f = torch.zeros_like(ps.dropped)
-    return _Carry(plant=ps,
-                  pol=PIState(prev_error=z,
-                              prev_pcap_l=pi_init(gains).prev_pcap_l),
+    if typed_pi is None:
+        typed_pi = pol.as_branches(policy) == ("pi",) and policy_vals is None
+    if typed_pi:
+        pol_s = PIState(prev_error=z, prev_pcap_l=pi_init(gains).prev_pcap_l)
+    else:
+        if policy_vals is None:
+            policy_vals = z.new_zeros(z.shape + (pol.POLICY_PARAM_DIM,))
+        pol_s = pol.branch_init(policy)(policy_vals, gains)
+    return _Carry(plant=ps, pol=pol_s,
                   pcap=profile.pcap_max.clone(),
                   anchor_gap=z, has_anchor=f, t=z,
                   steps=torch.zeros_like(z, dtype=torch.int32),
                   done=f, summ=_summary_init(z))
-
-
-def _reject_engine(**given) -> None:
-    """The engine arguments this path does not cover yet."""
-    if given.pop("typed_pi") is not True:
-        raise NotImplementedError(
-            "engine_step runs the typed fixed-gain PI path only "
-            "(typed_pi=True); the packed policy path is not ported yet: "
-            f"ROADMAP {_TODO['policies']}")
-    policy = given.pop("policy")
-    if not isinstance(policy, (tuple, list)) or tuple(policy) != ("pi",):
-        raise NotImplementedError(
-            f"policy= is not ported yet: ROADMAP {_TODO['policy']}")
-    _reject(**given)
 
 
 def engine_step(profile: PlantProfile, gains: PIGains, c: _Carry,
@@ -327,9 +341,9 @@ def engine_step(profile: PlantProfile, gains: PIGains, c: _Carry,
                 sampler: Callable[[torch.Tensor], torch.Tensor], *,
                 policy=("pi",), policy_vals=None, cap_limit=None,
                 summary_from=0.0, schedule=None, detector=None,
-                typed_pi: bool = True, faults=None, guard=None):
+                typed_pi: Optional[bool] = None, faults=None, guard=None):
     """One fused control period over a batch of runs: plant (Eq. 3) ->
-    heartbeat median (Eq. 1) -> Eq. 4 PI command, with
+    heartbeat median (Eq. 1) -> power-policy command, with
     early-exit-by-mask freezing and online summary reduction.
 
     ``profile`` / ``gains`` hold (B,) tensor fields (`_unpack_profile`,
@@ -341,15 +355,34 @@ def engine_step(profile: PlantProfile, gains: PIGains, c: _Carry,
     test). `summary_from` excludes the first steps from the online
     summaries only.
 
-    This is the reference's ``typed_pi`` single-branch fixed-gain PI
-    path; ``policy``, ``policy_vals``, ``cap_limit``, ``schedule``,
+    The controller is the typed Eq. 4 PI when ``c.pol`` is a `PIState`
+    (``typed_pi``, the reference's single-branch fast path), else the
+    `repro_torch.core.policies` contract through `plane_step`: ``policy``
+    is a branch-name tuple or a Policy (more than one name: each row runs
+    the branch of its kind, ``policy_vals[:, 0]``) and ``policy_vals``
+    the (B, POLICY_PARAM_DIM) packed hyperparameters; the branch set's
+    trace extras join ``out``. Both paths make the same float ops in the
+    same order for ("pi",), so their trajectories are equal bit for bit.
+    ``typed_pi=None`` follows the carry. ``cap_limit``, ``schedule``,
     ``detector``, ``faults`` and ``guard`` raise NotImplementedError
     naming the ROADMAP item that brings them.
 
     Returns (new_carry, out) where out holds this period's trace row."""
-    _reject_engine(typed_pi=typed_pi, policy=policy, policies=policy_vals,
-                   cap_limit=cap_limit, schedule=schedule,
-                   detector=detector, faults=faults, guard=guard)
+    _reject(cap_limit=cap_limit, schedule=schedule, detector=detector,
+            faults=faults, guard=guard)
+    branches = pol.as_branches(policy)
+    typed = isinstance(c.pol, PIState)
+    if (typed or typed_pi) and branches != ("pi",):
+        raise ValueError("typed_pi is the single-branch ('pi',) fast "
+                         f"path; got branches {branches}")
+    if typed_pi is not None and bool(typed_pi) != typed:
+        raise ValueError(
+            f"typed_pi={typed_pi}, but the carry's policy state is "
+            f"{'typed' if typed else 'packed'}; build the carry with "
+            "_default_init(..., typed_pi=...)")
+    if not typed and policy_vals is None:
+        policy_vals = c.pol.new_zeros(c.pol.shape[:-1]
+                                      + (pol.POLICY_PARAM_DIM,))
     plant_s, meas = plant_step(profile, c.plant, c.pcap, dt, noise)
     t = c.t + dt
     # synthesize heartbeats at the measured rate (Eq. 1 input)
@@ -359,12 +392,18 @@ def engine_step(profile: PlantProfile, gains: PIGains, c: _Carry,
         n > 0, 0.5 * dt / torch.clamp(n.to(torch.float32), min=1.0),
         c.anchor_gap + dt)
     has_anchor = c.has_anchor | (n > 0)
-    pol_s, pcap = pi_step(gains, c.pol, progress, dt)
+    if typed:
+        pol_s, pcap = pi_step(gains, c.pol, progress, dt)
+    else:
+        # the control plane's single control-law code path
+        pol_s, _, pcap, _ = plane_step(gains, policy, policy_vals, c.pol,
+                                       c.pcap, progress, meas["power"], dt)
 
     # early-exit-by-mask: freeze everything once done
     frz = lambda new, old: torch.where(c.done, old, new)
     plant_s = PlantState(*map(frz, plant_s, c.plant))
-    pol_s = PIState(*map(frz, pol_s, c.pol))
+    pol_s = (PIState(*map(frz, pol_s, c.pol)) if typed
+             else torch.where(c.done[..., None], c.pol, pol_s))
     pcap = frz(pcap, c.pcap)
     anchor_gap = frz(anchor_gap, c.anchor_gap)
     has_anchor = frz(has_anchor, c.has_anchor)
@@ -392,14 +431,21 @@ def engine_step(profile: PlantProfile, gains: PIGains, c: _Carry,
     out = {"t": t, "progress": progress, "pcap": pcap,
            "power": power, "energy": plant_s.energy,
            "work": plant_s.work, "valid": ~c.done}
+    if not typed:
+        out.update(pol.branch_extras(policy)(pol_s))
     return _Carry(plant_s, pol_s, pcap, anchor_gap, has_anchor, t,
                   c.steps + (~c.done).to(torch.int32), done, summ), out
 
 
-def _scan_core(max_steps: int, collect: bool = True):
+def _scan_core(max_steps: int, collect: bool = True, branches=("pi",),
+               typed_pi: bool = True):
     """Closed-loop runs over a batch: (profile_vals (B, 14), gains_vals
-    (B, 9), seeds (B,) int64, total_work, max_time, dt, summary_from) ->
-    (traces (T, B) per key | None, final carry), all on the rows' device.
+    (B, 9), seeds (B,) int64, total_work, max_time, dt, summary_from[,
+    policy_vals (B, POLICY_PARAM_DIM)]) -> (traces (T, B) per key | None,
+    final carry), all on the rows' device. ``typed_pi`` runs the typed
+    fixed-gain PI path; otherwise the packed policy state of the branch
+    set ``branches``, each run's hyperparameters and kind in its
+    ``policy_vals`` row (zeros when None), and the set's trace extras.
 
     Each run's plant noise is `ops.draw_noise` of its seed (channels 0-3,
     drawn `ops.CHUNK_T` steps at a time) and its heartbeat counts come
@@ -408,7 +454,7 @@ def _scan_core(max_steps: int, collect: bool = True):
     Poisson draw resolved."""
 
     def run(profile_vals, gains_vals, seeds, total_work, max_time, dt,
-            summary_from):
+            summary_from, policy_vals=None):
         dev = profile_vals.device
         # filled on the device: a copy from the host would sync
         sc = lambda x: torch.full((), float(x), dtype=torch.float32,
@@ -420,14 +466,13 @@ def _scan_core(max_steps: int, collect: bool = True):
                                            dtype=torch.float32))
         seeds = seeds.to(device=dev, dtype=torch.int64)
         stream = PoissonStream(seeds)
-        c = _default_init(profile, gains)
+        if not typed_pi:
+            policy_vals = (torch.zeros((seeds.shape[0],
+                                        pol.POLICY_PARAM_DIM), device=dev)
+                           if policy_vals is None else policy_vals.to(
+                               device=dev, dtype=torch.float32))
+        c = _default_init(profile, gains, branches, policy_vals, typed_pi)
         traces = None
-        if collect:
-            B = seeds.shape[0]
-            traces = {k: torch.empty((max_steps, B), device=dev,
-                                     dtype=torch.bool if k == "valid"
-                                     else torch.float32)
-                      for k in R.TRACE_KEYS}
         for t0 in range(0, max_steps, ops.CHUNK_T):
             n_t = min(ops.CHUNK_T, max_steps - t0)
             noise = ops.draw_noise(seeds, n_t, t0=t0)
@@ -435,8 +480,14 @@ def _scan_core(max_steps: int, collect: bool = True):
                 i = t0 + j
                 c, out = engine_step(
                     profile, gains, c, tw, mt, dt, noise[j, :4],
-                    lambda lam: stream(lam, i), summary_from=sf)
+                    lambda lam: stream(lam, i), policy=branches,
+                    policy_vals=policy_vals, typed_pi=typed_pi,
+                    summary_from=sf)
                 if collect:
+                    if traces is None:  # the keys: the row's, extras too
+                        traces = {k: torch.empty((max_steps,) + v.shape,
+                                                 dtype=v.dtype, device=dev)
+                                  for k, v in out.items()}
                     for k, v in out.items():
                         traces[k][i] = v
         stream.check()
@@ -448,25 +499,37 @@ def _scan_core(max_steps: int, collect: bool = True):
 def _final_dict(c: _Carry) -> Dict[str, np.ndarray]:
     """An engine carry as the kernel route's final dict (`ref.init_state`
     keys; flags and step counts as float32), numpy, so both backends
-    share one result assembly."""
+    share one result assembly; a packed policy state also comes back
+    whole, as ``policy_state``."""
+    packed = not isinstance(c.pol, PIState)
+    pi = PIState(c.pol[..., 0], c.pol[..., 1]) if packed else c.pol
     f = {"progress_l": c.plant.progress_l, "dropped": c.plant.dropped,
          "energy": c.plant.energy, "work": c.plant.work,
-         "prev_error": c.pol.prev_error, "prev_pcap_l": c.pol.prev_pcap_l,
+         "prev_error": pi.prev_error, "prev_pcap_l": pi.prev_pcap_l,
          "pcap": c.pcap, "anchor_gap": c.anchor_gap,
          "has_anchor": c.has_anchor, "t": c.t, "steps": c.steps,
          "done": c.done, **c.summ._asdict()}
+    if packed:
+        f["policy_state"] = c.pol
     return {k: v.to(torch.float32).cpu().numpy() for k, v in f.items()}
 
 
 def _scan_rows(prof, gains, seeds, *, total_work, max_time, dt,
-               summary_warmup, collect_traces, device):
+               summary_warmup, collect_traces, device, policy_vals=None,
+               branches=("pi",)):
     """Flat batch of runs through the scan engine -> (traces (N, T) |
-    None, final) as numpy, T = `_bucket_steps(ceil(max_time / dt))`."""
+    None, final) as numpy, T = `_bucket_steps(ceil(max_time / dt))`: the
+    typed PI path, or with (N, POLICY_PARAM_DIM) ``policy_vals`` rows the
+    packed path of ``branches``."""
     dev = resolve_device(device)
     max_steps = _bucket_steps(int(np.ceil(max_time / dt)))
-    traces, c = _scan_core(max_steps, collect_traces)(
+    typed = policy_vals is None
+    if not typed:
+        policy_vals = policy_vals.to(dev)
+    traces, c = _scan_core(max_steps, collect_traces, tuple(branches),
+                           typed)(
         prof.to(dev), gains.to(dev), seeds.to(dev), total_work, max_time,
-        dt, summary_warmup)
+        dt, summary_warmup, policy_vals)
     if traces is not None:
         traces = {k: v.T.cpu().numpy() for k, v in traces.items()}
     return traces, _final_dict(c)
@@ -535,57 +598,116 @@ def simulate_closed_loop(profile: Union[str, PlantProfile],
                          collect_traces: bool = True,
                          summary_warmup: int = 0,
                          device: Union[None, str, torch.device] = None,
-                         init=None, adaptive=None, design=None,
-                         policy=None, workload=None, detector=None,
-                         faults=None, guard=None, record_events=None
-                         ) -> SimResult:
-    """One closed-loop run through the fused closed-loop op.
+                         init=None, adaptive: Optional[RLSConfig] = None,
+                         design: Optional[PlantProfile] = None,
+                         policy: Optional[pol.Policy] = None,
+                         workload=None, detector=None, faults=None,
+                         guard=None, record_events=None) -> SimResult:
+    """One closed-loop run.
 
     Pass either `epsilon` (gains placed from the profile's identified
-    model) or explicit `gains` (e.g. designed on a different profile).
-    The run's noise stream is that of `ops.draw_noise` for ``seed``
-    (generated inside the kernel on CUDA). Runs on CUDA unless
-    ``device="cpu"``."""
-    _reject(init=init, adaptive=adaptive, design=design, policy=policy,
-            workload=workload, detector=detector, faults=faults,
+    model) or explicit `gains` (e.g. designed on a different profile, as
+    in the gain-shift experiments). With none of ``policy``,
+    ``adaptive`` and ``design`` the run goes through the fused
+    closed-loop op (the kernel route; its noise stream that of
+    `ops.draw_noise` for ``seed``, generated inside the kernel on CUDA).
+    Otherwise it runs on the scan engine, as the reference always does:
+    ``policy=`` any Policy, ``adaptive=RLSConfig(...)`` sugar for
+    ``policy=PIPolicy(adaptive=...)`` (the RLS estimator re-places the PI
+    gains online), ``design`` the model the initial gains were placed on
+    (defaults to the plant profile; the estimator linearizes against
+    it). Runs on CUDA unless ``device="cpu"``."""
+    _reject(init=init, workload=workload, detector=detector, faults=faults,
             guard=guard, record_events=record_events)
+    if policy is not None and adaptive is not None:
+        raise ValueError("pass policy= or adaptive=, not both "
+                         "(adaptive= is sugar for PIPolicy(adaptive=...))")
+    if policy is not None and design is not None:
+        raise ValueError("design= only applies to the adaptive= sugar; "
+                         "give the policy its design model directly "
+                         "(PIPolicy(adaptive=..., design=...))")
     profile = _resolve(profile)
     if gains is None:
         if epsilon is None:
             raise ValueError("pass epsilon or gains")
         gains = PIGains.from_model(profile, epsilon, tau_obj)
-    traces, f = _run_rows(
-        profile_values(profile)[None], gains_values(gains)[None],
-        torch.tensor([seed], dtype=torch.int64),
-        total_work=total_work, max_time=max_time, dt=dt,
-        summary_warmup=summary_warmup, collect_traces=collect_traces,
-        device=device)
+    scan = not (policy is None and adaptive is None and design is None)
+    if policy is None:
+        policy = PIPolicy(adaptive=adaptive,
+                          design=None if design is None
+                          else _resolve(design))
+    branch = policy.branch
+    rows = dict(total_work=total_work, max_time=max_time, dt=dt,
+                summary_warmup=summary_warmup,
+                collect_traces=collect_traces, device=device)
+    prof_row, gains_row = profile_values(profile)[None], gains_values(
+        gains)[None]
+    seed_row = torch.tensor([seed], dtype=torch.int64)
+    if scan:
+        traces, f = _scan_rows(
+            prof_row, gains_row, seed_row,
+            policy_vals=pol.policy_values(policy, profile, gains)[None],
+            branches=(branch,), **rows)
+    else:
+        traces, f = _run_rows(prof_row, gains_row, seed_row, **rows)
     f = {k: v[0] for k, v in f.items()}
     n = int(f["steps"])
     trimmed = {} if traces is None else {
         k: v[0, :n] for k, v in traces.items() if k != "valid"}
+    vec = f.get("policy_state")
+    if vec is None:  # the kernel route: the PI slots, tagged
+        vec = np.zeros((pol.POLICY_STATE_DIM,), np.float32)
+        vec[0], vec[1] = f["prev_error"], f["prev_pcap_l"]
+        vec[pol.BRANCH_TAG_SLOT] = float(pol.branch_tag("pi"))
+    rls_state = None
+    if branch == "pi_rls":
+        rls_state = RLSState(*(x.numpy() for x in rls_unpack(
+            torch.from_numpy(vec[PI_RLS_LO:PI_RLS_HI]))))
     return SimResult(traces=trimmed,
                      exec_time=float(f["t"]),
                      energy=float(f["energy"]),
                      work=float(f["work"]),
                      completed=bool(f["work"] >= total_work),
                      n_steps=n,
-                     pi_state=PIState(prev_error=f["prev_error"],
-                                      prev_pcap_l=f["prev_pcap_l"]),
+                     pi_state=(PIState(prev_error=f["prev_error"],
+                                       prev_pcap_l=f["prev_pcap_l"])
+                               if branch in ("pi", "pi_rls") else None),
                      plant_state=PlantState(progress_l=f["progress_l"],
                                             dropped=f["dropped"] > 0,
                                             energy=f["energy"],
                                             work=f["work"]),
                      pcap=float(f["pcap"]),
-                     summary=_summary_dict(f, _hist_edges(profile)))
+                     summary=_summary_dict(f, _hist_edges(profile)),
+                     rls_state=rls_state, policy_state=vec)
 
 
-def grid_rows(profiles: Sequence[Union[str, PlantProfile]],
-              epsilons: Sequence[float], seeds: Sequence[int],
-              tau_obj: float = 10.0):
-    """The profiles x epsilons x seeds grid as per-run rows in grid-nest
-    order: (N, 14) profile rows, (N, 9) gain rows, (N,) int64 seeds."""
-    profs = [_resolve(p) for p in profiles]
+def _policy_axis(adaptive, policies):
+    """The grid's policies, whether the A axis is squeezed, and whether
+    they were given at all (the reference's ValueErrors)."""
+    if adaptive is not None and policies is not None:
+        raise ValueError("pass policies= or adaptive=, not both "
+                         "(adaptive= is sugar for PIPolicy(adaptive=...))")
+    if policies is None:
+        if adaptive is None:
+            return [PIPolicy()], True, False
+        single = isinstance(adaptive, RLSConfig)
+        cfgs = [adaptive] if single else list(adaptive)
+        if not cfgs:
+            raise ValueError("adaptive= needs at least one RLSConfig")
+        return [PIPolicy(adaptive=c) for c in cfgs], single, True
+    single = isinstance(policies, pol.Policy)
+    pls = [policies] if single else list(policies)
+    if not pls:
+        raise ValueError("policies= needs at least one Policy")
+    return pls, single, True
+
+
+def _grid(profs, epsilons, seeds, tau_obj, pls, kinds):
+    """The profiles x epsilons x policies x seeds grid as per-run rows in
+    grid-nest order: (N, 14) profile rows, (N, 9) gain rows, (N,) int64
+    seeds and (N, POLICY_PARAM_DIM) policy values, the latter built at
+    the eps[0] design point per profile (as the reference does: RLS's
+    kl_ref and tau_obj depend only on the profile)."""
     eps = [float(e) for e in epsilons]
     seeds = [int(s) for s in seeds]
     if not (profs and eps and seeds):
@@ -595,64 +717,112 @@ def grid_rows(profiles: Sequence[Union[str, PlantProfile]],
     gv = torch.stack([torch.stack([
         gains_values(PIGains.from_model(p, e, tau_obj)) for e in eps])
         for p in profs])                                          # (P, E, 9)
-    ip, ie, is_ = (torch.from_numpy(i) for i in np.indices(
-        (len(profs), len(eps), len(seeds))).reshape(3, -1))
-    return pv[ip], gv[ip, ie], torch.tensor(seeds, dtype=torch.int64)[is_]
+    av = torch.stack([torch.stack([
+        pol.policy_values(p_, p, PIGains.from_model(p, eps[0], tau_obj),
+                          kind=k) for p_, k in zip(pls, kinds)])
+        for p in profs])                                          # (P, A, 10)
+    ip, ie, ia, is_ = (torch.from_numpy(i) for i in np.indices(
+        (len(profs), len(eps), len(pls), len(seeds))).reshape(4, -1))
+    return (pv[ip], gv[ip, ie], torch.tensor(seeds, dtype=torch.int64)[is_],
+            av[ip, ia])
+
+
+def grid_rows(profiles: Sequence[Union[str, PlantProfile]],
+              epsilons: Sequence[float], seeds: Sequence[int],
+              tau_obj: float = 10.0):
+    """The profiles x epsilons x seeds grid as per-run rows in grid-nest
+    order: (N, 14) profile rows, (N, 9) gain rows, (N,) int64 seeds."""
+    return _grid([_resolve(p) for p in profiles], epsilons, seeds, tau_obj,
+                 [PIPolicy()], (0,))[:3]
 
 
 def sweep(profiles, epsilons, seeds, total_work, max_time=3600.0,
           dt=1.0, tau_obj=10.0, adaptive=None, policies=None,
           collect_traces=True, summary_warmup=0, workloads=None,
           detector=None, faults=None, guard=None, record_events=None, *,
-          backend: str = "kernel", chunk_size: Optional[int] = None,
+          backend: str = "auto", chunk_size: Optional[int] = None,
           devices=None, typed_pi: bool = False, consume=None,
           durable=None, campaign=None,
           device: Union[None, str, torch.device] = None
           ) -> SweepResult:
-    """Closed-loop grid: profiles x epsilons x seeds, one batch of runs.
+    """Closed-loop grid: profiles x epsilons [x policies] x seeds, one
+    batch of runs.
 
-    Every (profile, epsilon, seed) cell is one run whose parameters and
-    noise stream ride in its own row, so any sub-grid reproduces the
-    same cells exactly. `collect_traces=False` switches to summary mode
-    (no (.., T) traces; O(grid) memory). `summary_warmup` excludes each
-    run's first steps (the descent transient) from the online summary
-    reductions only. Runs on CUDA unless ``device="cpu"``.
+    Every (profile, epsilon, [policy,] seed) cell is one run whose
+    parameters and noise stream ride in its own row, so any sub-grid
+    reproduces the same cells exactly. `collect_traces=False` switches to
+    summary mode (no (.., T) traces; O(grid) memory). `summary_warmup`
+    excludes each run's first steps (the descent transient) from the
+    online summary reductions only. Runs on CUDA unless ``device="cpu"``.
 
-    ``backend="kernel"`` (the default) runs the fused closed-loop op;
-    ``backend="scan"`` the Poisson-heartbeat step loop (`_scan_core`),
-    whose traces are `_bucket_steps(ceil(max_time / dt))` long, as the
-    reference's scan engine makes them. ``typed_pi=`` is accepted as the
-    reference accepts it: both engines run the typed fixed-gain PI path.
-    The reference's other axes and execution options (``adaptive``,
-    ``policies``, ``workloads``, ``detector``, ``faults``, ``guard``,
+    ``policies=`` takes a single Policy (axis squeezed) or a sequence
+    (an A axis between epsilons and seeds; a heterogeneous list runs as
+    one batch, each run on its own branch); ``adaptive=`` is sugar for
+    ``policies=[PIPolicy(adaptive=cfg) for cfg in ...]``, a single
+    RLSConfig squeezing the axis. Policy values are built at the eps[0]
+    design point per profile.
+
+    ``backend="auto"`` (the default) runs the kernel route when every
+    policy is fixed-gain PI (branch set ``("pi",)``) and the scan engine
+    otherwise; ``backend="kernel"`` refuses other branch sets;
+    ``backend="scan"`` runs the Poisson-heartbeat step loop
+    (`_scan_core`), whose traces are `_bucket_steps(ceil(max_time /
+    dt))` long, as the reference's scan engine makes them, and carry the
+    branch set's extras (a single branch kind only). Without
+    ``policies=`` / ``adaptive=`` (or with ``typed_pi=True``) the scan
+    engine runs the typed fixed-gain PI path, else the packed policy
+    state. The reference's other axes and execution options
+    (``workloads``, ``detector``, ``faults``, ``guard``,
     ``record_events``, ``chunk_size``, ``devices``, ``durable``, ...)
     raise NotImplementedError naming the ROADMAP item that brings
     them."""
-    _reject(adaptive=adaptive, policies=policies, workloads=workloads,
-            detector=detector, faults=faults, guard=guard,
-            record_events=record_events, chunk_size=chunk_size,
+    _reject(workloads=workloads, detector=detector, faults=faults,
+            guard=guard, record_events=record_events, chunk_size=chunk_size,
             devices=devices, consume=consume, durable=durable,
             campaign=campaign)
     _check_backend(backend)
     single = isinstance(profiles, (str, PlantProfile))
     profs = [_resolve(p) for p in ([profiles] if single else profiles)]
-    prof, gains, seed_rows = grid_rows(profs, epsilons, seeds, tau_obj)
-    traces, final = (_run_rows if backend == "kernel" else _scan_rows)(
-        prof, gains, seed_rows, total_work=total_work, max_time=max_time,
-        dt=dt, summary_warmup=summary_warmup,
-        collect_traces=collect_traces, device=device)
-    shape = (len(profs), len(epsilons), len(seeds))
+    pls, squeeze_pol, given = _policy_axis(adaptive, policies)
+    branches, kinds = pol.resolve_kinds(pls)
+    if typed_pi and branches != ("pi",):
+        raise ValueError("typed_pi= is the single-branch fixed-gain PI "
+                         f"fast path; this grid dispatches {branches}")
+    kernel_ok = branches == ("pi",)
+    if backend == "auto":
+        backend = "kernel" if kernel_ok else "scan"
+    elif backend == "kernel" and not kernel_ok:
+        raise ValueError(
+            "backend='kernel' covers the fixed-gain PI path only (static "
+            "plant, no detector, no faults/guard, no flight recorder); "
+            f"this grid needs branches={branches} — use backend='scan'")
+    prof, gains, seed_rows, pvals = _grid(profs, epsilons, seeds, tau_obj,
+                                          pls, kinds)
+    rows = dict(total_work=total_work, max_time=max_time, dt=dt,
+                summary_warmup=summary_warmup,
+                collect_traces=collect_traces, device=device)
+    if backend == "kernel":
+        traces, final = _run_rows(prof, gains, seed_rows, **rows)
+    else:
+        packed = given and not typed_pi
+        traces, final = _scan_rows(prof, gains, seed_rows,
+                                   policy_vals=pvals if packed else None,
+                                   branches=branches, **rows)
+    shape = (len(profs), len(epsilons), len(pls), len(seeds))
     final = {k: v.reshape(shape + v.shape[1:]) for k, v in final.items()}
     if traces is not None:
         traces = {k: v.reshape(shape + v.shape[1:])
                   for k, v in traces.items()}
     edges = {k: np.stack([_hist_edges(p)[k] for p in profs])
              for k in ("progress_edges", "pcap_edges")}
+    squeeze = lambda d, axis: None if d is None else {
+        k: v if k.endswith("_edges") else v[(slice(None),) * axis + (0,)]
+        for k, v in d.items()}
+    if squeeze_pol:
+        traces, final = squeeze(traces, 2), squeeze(final, 2)
     summary = _summary_dict(final, edges)
     if single:
-        traces = (None if traces is None
-                  else {k: v[0] for k, v in traces.items()})
-        final = {k: v[0] for k, v in final.items()}
+        traces, final = squeeze(traces, 0), squeeze(final, 0)
         summary = {k: v[0] for k, v in summary.items()}
     return SweepResult(traces=traces,
                        exec_time=final["t"],

@@ -676,3 +676,174 @@ def test_open_loop_and_replay_on_the_card_match_the_cpu(dev):
         sim.replay_model("gros", sched, device=dev).cpu().numpy(),
         sim.replay_model("gros", sched, device="cpu").numpy(), rtol=1e-5,
         atol=1e-4)
+
+
+# ---- policies and adaptation (no kernel: PyTorch on the card) ---------
+
+ALL4 = ("pi", "pi_rls", "dutycycle", "offline_rl")
+
+
+def test_fma_on_the_card_is_one_rounding(dev):
+    """`fma` on CUDA (`torch.addcmul`, contracted to an FMA instruction)
+    against the CPU's float64 emulation: the same single rounding."""
+    from repro_torch.core.fma import fma
+    g = torch.Generator().manual_seed(0)
+    x, y, z = (torch.randn(1 << 20, generator=g) for _ in range(3))
+    a = fma(x.to(dev), y.to(dev), z.to(dev)).cpu()
+    b = fma(x, y, z)
+    assert (a == b).float().mean().item() >= 0.99999
+    assert not torch.equal(b, x * y + z)   # two roundings differ somewhere
+
+
+def _policy_rows(n):
+    """n runs over gros / dahu / yeti, kinds cycling over the four
+    branches, with non-default hyperparameters."""
+    from repro_torch.core import policies as pol
+    from repro_torch.core.adaptive import RLSConfig
+    from repro_torch.core.controller import PIGains
+    from repro_torch.core.plant import PROFILES
+    pls = [pol.PIPolicy(), pol.PIPolicy(adaptive=RLSConfig(lam=0.97,
+                                                           dwell=3)),
+           pol.DutyCyclePolicy(n_levels=12, deadband=0.05),
+           pol.OfflineRLPolicy(weights=(0.1, 0.8, -0.5, 1.4, -1.0, 0.2))]
+    names = ["gros", "dahu", "yeti"]
+    prof, gains, vals = [], [], []
+    for i in range(n):
+        p = PROFILES[names[i % 3]]
+        g = PIGains.from_model(p, 0.05 * (i % 5))
+        prof.append(sim.profile_values(p))
+        gains.append(sim.gains_values(g))
+        vals.append(pol.policy_values(pls[i % 4], p, g, kind=i % 4))
+    return torch.stack(prof), torch.stack(gains), torch.stack(vals)
+
+
+def test_policy_branches_on_the_card_match_the_cpu(dev):
+    """Every branch (and the four at once) and the RLS step, 60 periods on
+    the same inputs on the card and on the CPU. The card's exp and log
+    (the PI's Eq. 2 transform) differ from the CPU's by ulps, and the RLS
+    covariance update cancels ~99.6 of ~100 on its first periods, so the
+    packed states are held at rtol 1e-4, atol 1e-4."""
+    from repro_torch.core import adaptive as A
+    from repro_torch.core import plane
+    from repro_torch.core import policies as pol
+    _, gv, av = _policy_rows(64)
+    for branches in [(b,) for b in ALL4] + [ALL4]:
+        vals = av.clone()
+        vals[:, 0] = torch.arange(64) % len(branches)
+        states = []
+        for d in (dev, torch.device("cpu")):
+            gains = plane.unpack_gains(gv.to(d))
+            st = pol.policy_init(branches, vals.to(d), gains)
+            rs = np.random.default_rng(1)
+            for i in range(60):
+                prog = torch.from_numpy((gv[:, 2].numpy() * rs.uniform(
+                    0.7, 1.3, 64)).astype(np.float32)).to(d)
+                st, pcap = pol.policy_step(branches, vals.to(d), st,
+                                           pol.PolicyObs(prog, None,
+                                                         torch.tensor(
+                                                             1.0,
+                                                             device=d),
+                                                         gains))
+            states.append((st.cpu(), pcap.cpu()))
+        for a, b in zip(*states):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                       atol=1e-4, err_msg=str(branches))
+    # the estimator alone
+    gros = sim.PROFILES["gros"]
+    vals = A.rls_values(A.RLSConfig(lam=0.9, dwell=2), gros,
+                        sim.PIGains.from_model(gros, 0.1))
+    vals = vals.expand(256, 6).contiguous()
+    out = []
+    for d in (dev, torch.device("cpu")):
+        s = A.rls_init(vals.to(d), torch.full((256,), 0.001, device=d),
+                       torch.full((256,), 0.004, device=d))
+        rs = np.random.default_rng(2)
+        for i in range(200):
+            p = torch.from_numpy(rs.uniform(10, 30, 256).astype(
+                np.float32)).to(d)
+            u = torch.from_numpy(rs.uniform(-0.6, -0.02, 256).astype(
+                np.float32)).to(d)
+            s = A.rls_step(vals.to(d), s, p, u, 1.0)
+        out.append(s)
+    for f in A.RLSState._fields:
+        np.testing.assert_allclose(getattr(out[0], f).cpu().numpy(),
+                                   getattr(out[1], f).numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=f)
+
+
+def test_packed_scan_step_loop_makes_no_host_sync(dev):
+    """The packed engine with all four branches: over a whole run the only
+    synchronizing call is the one check that every Poisson draw
+    resolved."""
+    import warnings
+    prof, gains, vals = _policy_rows(256)
+    run = sim._scan_core(256, collect=False, branches=ALL4, typed_pi=False)
+    prof, gains, seeds, vals = (x.to(dev) for x in (prof, gains,
+                                                    torch.arange(256), vals))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(prof, gains, seeds, 1e9, 256.0, 1.0, 30.0, vals)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+
+
+def test_policy_sweep_on_the_card_matches_the_cpu(dev):
+    """A heterogeneous race and an adaptive grid on the card and on the
+    CPU: the same streams, float paths that differ by ulps, seed means at
+    rtol 0.01 (as the typed scan engine is held)."""
+    from repro_torch.core.adaptive import RLSConfig
+    from repro_torch.core import policies as pol
+    kw = dict(total_work=1e9, max_time=256.0, summary_warmup=30,
+              collect_traces=False)
+    for extra in (dict(policies=[pol.PIPolicy(), pol.DutyCyclePolicy(),
+                                 pol.OfflineRLPolicy(
+                                     weights=(0, 0, 0, 1.4, -1.0, 0))]),
+                  dict(adaptive=[RLSConfig(lam=0.97),
+                                 RLSConfig(lam=0.999)])):
+        a = sim.sweep(["gros", "yeti"], [0.1], range(32), device=dev,
+                      **kw, **extra)
+        b = sim.sweep(["gros", "yeti"], [0.1], range(32), device="cpu",
+                      **kw, **extra)
+        for k in ("progress_mean", "power_mean"):
+            np.testing.assert_allclose(a.summary[k].mean(-1),
+                                       b.summary[k].mean(-1), rtol=0.01)
+        np.testing.assert_allclose(a.energy.mean(-1), b.energy.mean(-1),
+                                   rtol=0.01)
+
+
+def test_fit_offline_rl_on_the_card_recovers_the_optimal_action(dev):
+    """gamma=0 with reward -(a - 0.7)^2: the greedy policy fitted on the
+    card picks the candidate nearest u = 0.7 at every state; its 50
+    iterations make no host sync."""
+    import warnings
+    from repro_torch.core import policies as pol
+    from repro_torch.core.policies import offline_rl as RL
+    rng = np.random.default_rng(0)
+    n = 4000
+    s = rng.uniform(0.4, 1.4, n).astype(np.float32)
+    a = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    r = -((a - 0.7) ** 2).astype(np.float32)
+    ds = {"s": s, "a": a, "r": r, "s2": s}
+    policy = pol.fit_offline_rl(ds, gamma=0.0, n_iters=3, device=dev)
+    us = np.linspace(0.0, 1.0, pol.N_ACTIONS)
+    for x in np.linspace(0.4, 1.4, 11):
+        q = [float(np.dot([1, x, x * x, u, u * u, x * u], policy.weights))
+             for u in us]
+        assert abs(us[int(np.argmax(q))] - 0.7) <= us[1] - us[0]
+    t = [torch.from_numpy(ds[k]).to(dev) for k in ("s", "a", "r", "s2")]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            RL._fqi(*t, 0.9, 1e-3, 50)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in seen if "synchroniz" in str(w.message)
+                and "prototype" not in str(w.message)]

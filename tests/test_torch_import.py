@@ -30,7 +30,9 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.obs, repro_torch.obs.metrics, "
             "repro_torch.obs.trace, repro_torch.obs.retry, "
             "repro_torch.core.identify, repro_torch.core.signals, "
-            "repro_torch.core.poisson\n"
+            "repro_torch.core.poisson, repro_torch.core.adaptive, "
+            "repro_torch.core.policies, repro_torch.core.plane, "
+            "repro_torch.core.fma\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -77,6 +79,23 @@ def test_entry_points_refuse_to_run_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim.sweep("gros", [0.1], [0], total_work=10.0, max_time=64.0,
                   backend="scan")
+    from repro_torch.core.adaptive import RLSConfig
+    from repro_torch.core.policies import (DutyCyclePolicy, PIPolicy,
+                                           fit_offline_rl)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.sweep("gros", [0.1], [0], total_work=10.0, max_time=64.0,
+                  policies=[PIPolicy(), DutyCyclePolicy()])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.sweep("gros", [0.1], [0], total_work=10.0, max_time=64.0,
+                  adaptive=[RLSConfig()])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.simulate_closed_loop("gros", 0.1, total_work=10.0,
+                                 max_time=64.0, adaptive=RLSConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim.simulate_closed_loop("gros", 0.1, total_work=10.0,
+                                 max_time=64.0, policy=DutyCyclePolicy())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_offline_rl({k: [0.5, 0.6] for k in ("s", "a", "r", "s2")})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim.open_loop_runs("gros", 40, range(3))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -139,17 +139,29 @@ def test_engine_step_matches_reference_typed_pi_on_its_own_draws():
     assert seen | seen2 == {(n, a) for n in range(4) for a in (False, True)}
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(typed_pi=False), dict(policy=("pi", "dutycycle")),
-    dict(policy_vals=torch.zeros(4)), dict(cap_limit=100.0),
-    dict(schedule=object()), dict(detector=object()),
-    dict(faults=object()), dict(guard=object())])
-def test_engine_step_rejects_what_is_not_ported(kwargs):
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(policy=("pi", "dutycycle"), policy_vals=torch.zeros(1, 10),
+          detector=object()), NotImplementedError),
+    (dict(policy=("pi_rls",), policy_vals=torch.zeros(1, 10),
+          faults=object()), NotImplementedError),
+    (dict(policy=("pi", "dutycycle"), typed_pi=True), ValueError),
+    (dict(cap_limit=100.0), NotImplementedError),
+    (dict(schedule=object()), NotImplementedError),
+    (dict(detector=object()), NotImplementedError),
+    (dict(faults=object()), NotImplementedError),
+    (dict(guard=object()), NotImplementedError)])
+def test_engine_step_rejects_what_is_not_ported(kwargs, error):
+    """What later slices bring raises NotImplementedError naming its
+    ROADMAP item, on the typed and the packed path; the typed fast path
+    refuses a branch set other than ("pi",), as the reference does."""
     prof = sim._unpack_profile(sim.profile_values(PROFILES["gros"])[None])
     gains = plane.unpack_gains(sim.gains_values(
         sim.PIGains.from_model(PROFILES["gros"], 0.1))[None])
-    c = sim._default_init(prof, gains)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    c = sim._default_init(prof, gains, kwargs.get("policy", ("pi",)),
+                          kwargs.get("policy_vals"))
+    match = "ROADMAP Queue 1 item" if error is NotImplementedError \
+        else "typed_pi"
+    with pytest.raises(error, match=match):
         sim.engine_step(prof, gains, c, 1e9, 64.0, 1.0, torch.zeros(4, 1),
                         lambda lam: lam.to(torch.int32), **kwargs)
 

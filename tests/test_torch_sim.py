@@ -19,7 +19,9 @@ from repro.core import sim as jsim  # noqa: E402
 from repro_torch.core import sim  # noqa: E402
 from repro_torch.core.energy import (pareto_front, summarize_run,  # noqa: E402
                                      tradeoff_table)
+from repro_torch.core.adaptive import RLSConfig  # noqa: E402
 from repro_torch.core.plant import PROFILES  # noqa: E402
+from repro_torch.core.policies import DutyCyclePolicy, PIPolicy  # noqa: E402
 
 CPU = dict(device="cpu")
 
@@ -188,24 +190,41 @@ def test_pareto_front_extraction():
     assert labels == [(9.0, 9.0), (10.0, 5.0), (12.0, 3.0), (15.0, 2.0)]
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(adaptive=object()), dict(policies=[object()]),
-    dict(workloads=object()), dict(detector=object()),
-    dict(faults=object()), dict(guard=True), dict(record_events=True),
-    dict(chunk_size=4), dict(devices="all"), dict(durable="/nonexistent"),
-    dict(backend="scan", adaptive=object())])
-def test_sweep_rejects_what_the_kernel_cannot_run(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+NOT_YET = (NotImplementedError, "ROADMAP")
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(backend="kernel", policies=[DutyCyclePolicy()]),
+     (ValueError, "fixed-gain PI path only")),
+    (dict(adaptive=RLSConfig(), policies=PIPolicy()),
+     (ValueError, "not both")),
+    (dict(policies=[]), (ValueError, "at least one Policy")),
+    (dict(workloads=object()), NOT_YET), (dict(detector=object()), NOT_YET),
+    (dict(faults=object()), NOT_YET), (dict(guard=True), NOT_YET),
+    (dict(record_events=True), NOT_YET), (dict(chunk_size=4), NOT_YET),
+    (dict(devices="all"), NOT_YET), (dict(durable="/nonexistent"), NOT_YET),
+    (dict(backend="scan", adaptive=RLSConfig(), workloads=object()),
+     NOT_YET)])
+def test_sweep_rejects_what_the_kernel_cannot_run(kwargs, error):
+    """What later slices bring raises NotImplementedError naming its
+    ROADMAP item; the policy axis's misuses raise the reference's
+    ValueErrors."""
+    with pytest.raises(error[0], match=error[1]):
         sim.sweep("gros", [0.1], [0], total_work=100.0, max_time=64.0,
                   **kwargs, **CPU)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(init=object()), dict(adaptive=object()), dict(policy=object()),
-    dict(workload=object()), dict(detector=object()),
-    dict(faults=object()), dict(guard=True), dict(record_events=True)])
-def test_simulate_rejects_what_the_kernel_cannot_run(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(init=object()), NOT_YET),
+    (dict(policy=PIPolicy(), adaptive=RLSConfig()),
+     (ValueError, "not both")),
+    (dict(policy=DutyCyclePolicy(), design=PROFILES["dahu"]),
+     (ValueError, "design= only applies")),
+    (dict(workload=object()), NOT_YET), (dict(detector=object()), NOT_YET),
+    (dict(faults=object()), NOT_YET), (dict(guard=True), NOT_YET),
+    (dict(record_events=True), NOT_YET)])
+def test_simulate_rejects_what_the_kernel_cannot_run(kwargs, error):
+    with pytest.raises(error[0], match=error[1]):
         sim.simulate_closed_loop("gros", 0.1, total_work=100.0,
                                  max_time=64.0, **kwargs, **CPU)
 
