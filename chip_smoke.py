@@ -102,7 +102,28 @@ Phases, each of which fails the run if a check fails:
    duty-cycle below 0.9 x pcap_max at eps 0.3, the PI lane of a mixed
    sweep bit-equal to a pure packed-PI sweep; per (profile, policy) time,
    energy and median progress over the setpoint; the race's launches
-   per step).
+   per step);
+13. the scenario axes on the card (phased workloads, change detection,
+   faults, the guard and the flight recorder), which bring no kernel of
+   their own (every run on the scan engine, no closed-loop launch):
+   `benchmarks/fig8_phases.py` at `--full` (offline RL fitted on a PI
+   harvest of gros, dahu x 2 seeds; PI, RLS-adaptive PI, offline RL and
+   duty-cycle x gros, dahu x 20 seeds on the STREAM -> DGEMM -> STREAM
+   schedule, without and with the detector) and `fig9_chaos.py` at
+   `--full` (PI, RLS-adaptive PI and duty-cycle x 6 blackout rates x 16
+   seeds x 4,000 s, unguarded and guarded), each held to the reference's
+   own `--full` numbers (`tools/scenario_reference.py`) within
+   `SCEN_SIGMAS` combined standard errors, the guard cutting RLS-adaptive
+   PI's error at rates >= 0.10 and fig. 9's rate-0 lane bit-equal
+   between the arms; the main grid under every axis at once (fig. 8's
+   schedule, the detector, `chaos_schedule(0.10)`, the guard, 64-slot
+   rings): all finite, a 97-seed sub-grid bit-equal, decoded rings
+   against the guard's and the detector's counters and the scripts'
+   windows, its wall, runs/s, peak memory, launches per step and idle
+   share (a 256-step profile), and the step loop's launches per step by
+   axis set; and bitwise neutrality at the main grid's size (512 steps):
+   a no-op fault script, an untriggered guard and the recorder leave
+   every run with no invalid signal equal to the plain sweep's.
 
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
@@ -722,14 +743,15 @@ def serving_path(dev):
     return launches, params, batch
 
 
-def device_breakdown(fn, label: str, host_ops: bool = True):
+def device_breakdown(fn, label: str, host_ops: bool = True,
+                     quiet: bool = False):
     """Print the device time of one call of ``fn`` by kernel family and
     its share of the call's wall time, from `torch.profiler`, and return
     ``{"wall_us", "busy_us", "launches"}`` (None when not measured). A
     reading, not a check: if the profiler gives no device events it says
     so. ``host_ops=False`` records the device's activity only: over tens
     of thousands of launches, recording every host op slows the host and
-    so inflates the idle share it reads."""
+    so inflates the idle share it reads. ``quiet`` prints nothing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -761,12 +783,13 @@ def device_breakdown(fn, label: str, host_ops: bool = True):
         if not groups:
             print(f"[profile] {label}: no device events; not measured")
             return None
-        print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device "
-              f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%, idle "
-              f"{100 - 100 * busy / wall_us:.1f}%); "
-              + "; ".join(f"{fam} {us / 1e3:.3f} ms in {n} launches"
-                          for fam, (n, us) in sorted(
-                              groups.items(), key=lambda x: -x[1][1])))
+        if not quiet:
+            print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device"
+                  f" busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%,"
+                  f" idle {100 - 100 * busy / wall_us:.1f}%); "
+                  + "; ".join(f"{fam} {us / 1e3:.3f} ms in {n} launches"
+                              for fam, (n, us) in sorted(
+                                  groups.items(), key=lambda x: -x[1][1])))
         return {"wall_us": wall_us, "busy_us": busy,
                 "launches": sum(n for n, _ in groups.values())}
     except Exception as e:  # a reading only: the smoke's checks stand
@@ -1263,6 +1286,460 @@ LAM_SUB = list(range(0, 960, 10)) + [999]
 SHIFT_KW = dict(total_work=6000.0, max_time=1024.0, seed=6)
 RACE_PROFS, RACE_EPS = ("gros", "dahu", "yeti"), 0.1
 RACE_KW = dict(total_work=2000.0, max_time=1024.0)
+
+
+# ---- phase 13: the scenario axes (phased workloads, detector, faults,
+# guard, flight recorder) on the card --------------------------------------
+
+# `benchmarks/fig8_phases.py` and `fig9_chaos.py` at their `--full` sizes
+F8_PROFS, F8_EPS, F8_DWELL, F8_TIME, F8_SEEDS = ("gros", "dahu"), 0.1, \
+    250.0, 750.0, 20
+F8_NAMES = ("pi", "pi_rls", "offline_rl", "dutycycle")
+F9_PERIOD, F9_START, F9_TIME, F9_SEEDS = 400.0, 80.0, 4000.0, 16
+F9_RATES = (0.0, 0.02, 0.05, 0.10, 0.15, 0.25)
+F9_NAMES = ("pi", "pi_rls", "dutycycle")
+STREAM = {"alpha": 3.0, "beta": 0.6}
+DGEMM = {"alpha": 0.3, "beta": 1.14, "K_L": 2.0}
+# The reference's own `--full` numbers: `tools/scenario_reference.py`, the
+# JAX package on the CPU. Fig. 8 per (arm, policy, profile): mean energy
+# [J], its standard error over the 20 seeds, J/work, median progress over
+# the setpoint, alarms per run. Fig. 9 per (arm, policy, rate): tracking
+# error, its standard error over the 16 seeds, error over the clean error,
+# J/work, time in fail-safe.
+F8_REF = {
+    ("no_detector", "pi", "gros"): (40168.13, 90.42, 2.24389, 1.08215, 0.000),
+    ("no_detector", "pi", "dahu"): (45575.12, 87.32, 1.70460, 1.00702, 0.000),
+    ("no_detector", "pi_rls", "gros"): (40595.36, 72.81, 2.26024, 1.08215, 0.000),
+    ("no_detector", "pi_rls", "dahu"): (45084.50, 54.60, 1.68789, 1.00702, 0.000),
+    ("no_detector", "offline_rl", "gros"): (55135.46, 0.00, 2.99465, 1.08215, 0.000),
+    ("no_detector", "offline_rl", "dahu"): (56565.27, 0.00, 2.07730, 1.06376, 0.000),
+    ("no_detector", "dutycycle", "gros"): (66634.24, 385.27, 3.38997, 1.16231, 0.000),
+    ("no_detector", "dutycycle", "dahu"): (60476.45, 334.15, 2.00863, 1.14886, 0.000),
+    ("detector", "pi", "gros"): (40168.13, 90.42, 2.24389, 1.08215, 3.400),
+    ("detector", "pi", "dahu"): (45575.12, 87.32, 1.70460, 1.00702, 3.550),
+    ("detector", "pi_rls", "gros"): (40720.63, 94.54, 2.26120, 1.08215, 3.550),
+    ("detector", "pi_rls", "dahu"): (45600.05, 75.09, 1.69667, 1.00702, 3.550),
+    ("detector", "offline_rl", "gros"): (55135.46, 0.00, 2.99465, 1.08215, 0.150),
+    ("detector", "offline_rl", "dahu"): (56565.27, 0.00, 2.07730, 1.06376, 2.550),
+    ("detector", "dutycycle", "gros"): (66634.24, 385.27, 3.38997, 1.16231, 4.050),
+    ("detector", "dutycycle", "dahu"): (60476.45, 334.15, 2.00863, 1.14886, 9.000),
+}
+F9_REF = {
+    ("unguarded", "pi", 0.0): (0.002581, 0.000450, 1.0000, 3.32114, 0.0),
+    ("unguarded", "pi", 0.02): (0.002612, 0.000492, 1.0119, 3.34935, 0.0),
+    ("unguarded", "pi", 0.05): (0.005562, 0.000635, 2.1551, 3.38109, 0.0),
+    ("unguarded", "pi", 0.1): (0.011677, 0.000629, 4.5245, 3.43513, 0.0),
+    ("unguarded", "pi", 0.15): (0.017345, 0.000681, 6.7205, 3.48659, 0.0),
+    ("unguarded", "pi", 0.25): (0.028362, 0.000611, 10.9894, 3.58694, 0.0),
+    ("unguarded", "pi_rls", 0.0): (0.002534, 0.000507, 1.0000, 3.32170, 0.0),
+    ("unguarded", "pi_rls", 0.02): (0.003459, 0.000654, 1.3651, 3.34980, 0.0),
+    ("unguarded", "pi_rls", 0.05): (0.002310, 0.000429, 0.9114, 3.38002, 0.0),
+    ("unguarded", "pi_rls", 0.1): (0.075118, 0.001070, 29.6442, 3.71221, 0.0),
+    ("unguarded", "pi_rls", 0.15): (0.112481, 0.001295, 44.3889, 3.91329, 0.0),
+    ("unguarded", "pi_rls", 0.25): (0.113396, 0.000457, 44.7499, 4.08765, 0.0),
+    ("unguarded", "dutycycle", 0.0): (0.091964, 0.000259, 1.0000, 4.00151, 0.0),
+    ("unguarded", "dutycycle", 0.02): (0.092478, 0.000251, 1.0056, 4.00791, 0.0),
+    ("unguarded", "dutycycle", 0.05): (0.093033, 0.000231, 1.0116, 4.01631, 0.0),
+    ("unguarded", "dutycycle", 0.1): (0.094065, 0.000220, 1.0228, 4.03072, 0.0),
+    ("unguarded", "dutycycle", 0.15): (0.095087, 0.000191, 1.0340, 4.04522, 0.0),
+    ("unguarded", "dutycycle", 0.25): (0.097058, 0.000177, 1.0554, 4.07312, 0.0),
+    ("guarded", "pi", 0.0): (0.002581, 0.000450, 1.0000, 3.32114, 0.00000),
+    ("guarded", "pi", 0.02): (0.003010, 0.000591, 1.1664, 3.32362, 0.00000),
+    ("guarded", "pi", 0.05): (0.003407, 0.000596, 1.3203, 3.32757, 0.00000),
+    ("guarded", "pi", 0.1): (0.004198, 0.000759, 1.6266, 3.33598, 0.00000),
+    ("guarded", "pi", 0.15): (0.005600, 0.001024, 2.1699, 3.34175, 0.00000),
+    ("guarded", "pi", 0.25): (0.008181, 0.001421, 3.1699, 3.44330, 0.10000),
+    ("guarded", "pi_rls", 0.0): (0.002534, 0.000507, 1.0000, 3.32170, 0.00000),
+    ("guarded", "pi_rls", 0.02): (0.002694, 0.000514, 1.0631, 3.32282, 0.00000),
+    ("guarded", "pi_rls", 0.05): (0.002763, 0.000555, 1.0903, 3.32800, 0.00000),
+    ("guarded", "pi_rls", 0.1): (0.003592, 0.000719, 1.4176, 3.33495, 0.00000),
+    ("guarded", "pi_rls", 0.15): (0.004729, 0.000810, 1.8662, 3.34213, 0.00000),
+    ("guarded", "pi_rls", 0.25): (0.012612, 0.001586, 4.9772, 3.44924, 0.10000),
+    ("guarded", "dutycycle", 0.0): (0.091964, 0.000259, 1.0000, 4.00151, 0.00000),
+    ("guarded", "dutycycle", 0.02): (0.091191, 0.000246, 0.9916, 3.99540, 0.00000),
+    ("guarded", "dutycycle", 0.05): (0.090407, 0.000266, 0.9831, 3.98923, 0.00000),
+    ("guarded", "dutycycle", 0.1): (0.088961, 0.000447, 0.9673, 3.97807, 0.00000),
+    ("guarded", "dutycycle", 0.15): (0.087461, 0.000674, 0.9510, 3.96665, 0.00000),
+    ("guarded", "dutycycle", 0.25): (0.089335, 0.000698, 0.9714, 3.99426, 0.10000),
+}
+# The card's figures against the reference's: the two packages draw
+# independent random streams, so a cell's difference has the standard
+# error sqrt(se_ref^2 + se_card^2) of two seed means; a cell is held to
+# SCEN_SIGMAS of them (fig. 8's energy of PI, RLS-adaptive PI and
+# duty-cycle, fig. 9's tracking error of every cell). The port on the CPU
+# (same streams as the card) sits within 3.3 of them
+# (`tools/scenario_reference.py`), and 66 cells at 5 leave a chance
+# deviation under 1e-4. Offline RL is fitted on each package's own
+# harvest and follows that harvest's streams, so it is reported, not
+# held. Alarms per run of PI and RLS-adaptive PI within SCEN_ALARMS of
+# the reference's.
+SCEN_SIGMAS = 5.0
+SCEN_ALARMS = 1.0
+# the step loop's launches per step by axis set are read over this many
+# steps (a profile records every launch; a longer loop only costs time;
+# 2 x AXIS_STEPS stays inside one noise chunk, ops.CHUNK_T)
+AXIS_STEPS = 16
+
+
+def chaos_schedule(flt, rate: float):
+    """`benchmarks/fig9_chaos.py`'s cyclic script: a full heartbeat
+    blackout and a frozen meter for a ``rate`` share of every 400 s cycle
+    (rate 0: the no-op script, the clean arm)."""
+    windows = []
+    if rate > 0:
+        d = rate * F9_PERIOD
+        windows = [flt.FaultWindow("hb_dropout", F9_START, d, p1=1.0),
+                   flt.FaultWindow("meter_freeze", F9_START, d)]
+    return flt.FaultSchedule(windows, period=F9_PERIOD,
+                             name=f"chaos-{rate:g}")
+
+
+def _held(card, se_card, ref, se_ref) -> float:
+    """The card's mean against the reference's, in combined standard
+    errors of two independent seed means."""
+    return abs(card - ref) / max(np.hypot(se_card, se_ref), 1e-12)
+
+
+def loop_launches(sim, flt, dev, steps, workloads=None, detector=None,
+                  faults=None, guard=None, record_events=None):
+    """Device launches per step of the scan engine's step loop (packed
+    PI, gros and dahu x 512 seeds, the given scenario axes): a profile of
+    2 x ``steps`` steps less one of ``steps`` steps, over ``steps``, so
+    neither the set-up nor the noise draw (one per `ops.CHUNK_T` steps)
+    counts (None when the profiler gives no device events)."""
+    from repro_torch.core.policies import PIPolicy
+    profs = [sim._resolve(p) for p in ("gros", "dahu")]
+    extra, build, _ = sim._scenario_axes(profs, workloads, detector, faults)
+    n_events = sim._resolve_n_events(record_events)
+    prof, gains, seeds, pvals, idx = sim._grid(profs, [0.1], range(512),
+                                               10.0, [PIPolicy()], (0,),
+                                               extra)
+    scen = sim._scenario_rows(build, idx, sim._guard_vector(guard), n_events)
+    args = [x.to(dev) for x in (prof, gains, seeds)]
+    kw = scen.inputs(dev)
+    pvals = pvals.to(dev)
+
+    def run(n):
+        sim._scan_core(n, collect=False, typed_pi=False, n_events=n_events)(
+            *args, 1e9, float(max(n, 1)), 1.0, 30.0, pvals, **kw)
+
+    base = device_breakdown(lambda: run(steps), "loop", host_ops=False,
+                            quiet=True)
+    loop = device_breakdown(lambda: run(2 * steps), "loop", host_ops=False,
+                            quiet=True)
+    if base is None or loop is None:
+        return None
+    return (loop["launches"] - base["launches"]) / steps
+
+
+def scenarios_phase(dev, main_grid, main_kw, smi) -> None:
+    """Phase 13: the scenario axes on the card (no kernel of their own;
+    every run on the scan engine): Fig. 8 and Fig. 9 at the reference's
+    `--full` sizes against the reference's numbers, the main grid under
+    every axis at once, and bitwise neutrality at the main grid's size."""
+    import torch
+    from repro_torch.core import faults as flt
+    from repro_torch.core import sim
+    from repro_torch.core.adaptive import RLSConfig
+    from repro_torch.core.plant import PROFILES
+    from repro_torch.core.policies import (DutyCyclePolicy, PIPolicy,
+                                           build_dataset, fit_offline_rl)
+    from repro_torch.core.workloads import (DetectorConfig, Phase,
+                                            PhaseSchedule)
+    from repro_torch.kernels.closed_loop import kernel as K
+    from repro_torch.obs import events as evt
+    started = time.perf_counter()
+    walls = {}
+    sched = PhaseSchedule((Phase(F8_DWELL, scale=STREAM),
+                           Phase(F8_DWELL, scale=DGEMM),
+                           Phase(F8_DWELL, scale=STREAM)),
+                          name="stream-dgemm-x3")
+    guard = flt.GuardConfig(hold_k=3, failsafe_k=60)
+
+    # ---- a. Fig. 8 at --full: every policy on the phased schedule -------
+    t0 = time.perf_counter()
+    har = sim.sweep(F8_PROFS, [F8_EPS], range(2), total_work=2000.0,
+                    max_time=1024.0, backend="scan")
+    parts = [build_dataset({k: v[i] for k, v in har.traces.items()},
+                           PROFILES[p], F8_EPS)
+             for i, p in enumerate(F8_PROFS)]
+    data = {k: np.concatenate([d[k] for d in parts]) for k in parts[0]}
+    rl = fit_offline_rl(data, n_iters=100)
+    walls["fig8 harvest + fit"] = time.perf_counter() - t0
+    check(np.isfinite(rl.weights).all(), f"fig8 offline RL {rl.weights}")
+    print(f"[scenario] fig8: {len(data['s'])} transitions harvested from "
+          f"{har.exec_time.size} PI runs (scan engine), offline RL fitted "
+          f"on the card (100 iterations): w = "
+          + ", ".join(f"{w:.4f}" for w in rl.weights))
+    del har
+    policies = [PIPolicy(), PIPolicy(adaptive=RLSConfig()), rl,
+                DutyCyclePolicy()]
+    worst8 = 0.0
+    for arm, det in (("no_detector", None), ("detector", DetectorConfig())):
+        K.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = sim.sweep(F8_PROFS, [F8_EPS], range(F8_SEEDS),
+                        total_work=1e12, max_time=F8_TIME,
+                        policies=policies, workloads=sched,
+                        collect_traces=False, summary_warmup=30,
+                        detector=det)
+        walls[f"fig8 {arm}"] = time.perf_counter() - t0
+        check(K.LAUNCHES == 0, f"fig8 {arm}: {K.LAUNCHES} kernel launches")
+        check(res.exec_time.shape == (2, 1, 4, F8_SEEDS), "fig8 shape")
+        check((det is None) == (res.detections is None), "fig8 detections")
+        for p, prof in enumerate(F8_PROFS):
+            sp = (1.0 - F8_EPS) * PROFILES[prof].progress_max
+            cells = []
+            for a, name in enumerate(F8_NAMES):
+                e, w = res.energy[p, 0, a], res.work[p, 0, a]
+                check(np.isfinite(e).all() and np.isfinite(w).all(),
+                      f"fig8 {arm} {name} {prof} not finite")
+                se = float(e.std(ddof=1) / np.sqrt(len(e)))
+                med = sim.hist_quantile(res.summary["progress_hist"][p, 0, a],
+                                        res.summary["progress_edges"][p],
+                                        0.5)
+                alarms = (0.0 if res.detections is None
+                          else float(res.detections[p, 0, a].mean()))
+                r_e, r_se, r_jpw, r_ps, r_al = F8_REF[(arm, name, prof)]
+                if name != "offline_rl":
+                    z = _held(float(e.mean()), se, r_e, r_se)
+                    worst8 = max(worst8, z)
+                    check(z <= SCEN_SIGMAS, f"fig8 {arm} {name} {prof}: "
+                          f"energy {e.mean():.2f} vs the reference's "
+                          f"{r_e} ({z:.2f} standard errors)")
+                if det is not None and name in ("pi", "pi_rls"):
+                    check(abs(alarms - r_al) <= SCEN_ALARMS,
+                          f"fig8 {name} {prof}: {alarms} alarms a run vs "
+                          f"the reference's {r_al}")
+                cells.append(
+                    f"{name} E {e.mean():.2f} J (ref {r_e}), J/work "
+                    f"{e.mean() / w.mean():.5f} (ref {r_jpw}), progress/"
+                    f"setpoint {np.median(med) / sp:.5f} (ref {r_ps}), "
+                    f"alarms {alarms:.3f} (ref {r_al})")
+            print(f"[scenario] fig8 {arm} {prof} (eps {F8_EPS}, "
+                  f"{F8_SEEDS} seeds, {F8_TIME:.0f} s): " + "; ".join(cells))
+        del res
+    print(f"[scenario] fig8 energy of pi, pi_rls, dutycycle: worst "
+          f"{worst8:.2f} combined standard errors off the reference "
+          f"(bar {SCEN_SIGMAS})")
+
+    # ---- b. Fig. 9 at --full: the chaos grid, unguarded and guarded -----
+    setpoint = (1.0 - F8_EPS) * PROFILES["gros"].progress_max
+    scheds = [chaos_schedule(flt, r) for r in F9_RATES]
+    runs9, worst9 = {}, 0.0
+    for arm, g in (("unguarded", None), ("guarded", guard)):
+        t0 = time.perf_counter()
+        res = sim.sweep("gros", [F8_EPS], range(F9_SEEDS), total_work=1e12,
+                        max_time=F9_TIME,
+                        policies=[PIPolicy(), PIPolicy(adaptive=RLSConfig()),
+                                  DutyCyclePolicy()],
+                        faults=scheds, guard=g, collect_traces=False,
+                        summary_warmup=60)
+        walls[f"fig9 {arm}"] = time.perf_counter() - t0
+        check(res.exec_time.shape == (1, 3, len(F9_RATES), F9_SEEDS),
+              f"fig9 shape {res.exec_time.shape}")
+        runs9[arm] = res
+        err = np.abs(res.work[0] / np.maximum(res.exec_time[0], 1e-9)
+                     - setpoint) / setpoint
+        for a, name in enumerate(F9_NAMES):
+            clean = float(err[a, 0].mean())
+            cells = []
+            for f, r in enumerate(F9_RATES):
+                e = err[a, f]
+                check(np.isfinite(e).all(), f"fig9 {arm} {name} {r}")
+                se = float(e.std(ddof=1) / np.sqrt(len(e)))
+                r_e, r_se, r_ratio, r_jpw, r_fs = F9_REF[(arm, name, r)]
+                z = _held(float(e.mean()), se, r_e, r_se)
+                worst9 = max(worst9, z)
+                check(z <= SCEN_SIGMAS, f"fig9 {arm} {name} rate {r}: "
+                      f"error {e.mean():.6f} vs the reference's {r_e} "
+                      f"({z:.2f} standard errors)")
+                jpw = float((res.energy[0, a, f]
+                             / np.maximum(res.work[0, a, f], 1e-9)).mean())
+                cell = (f"{r:g}: err {e.mean():.6f} (ref {r_e}), x clean "
+                        f"{e.mean() / max(clean, 1e-12):.3f} (ref {r_ratio}"
+                        f"), J/work {jpw:.5f} (ref {r_jpw})")
+                if res.guard_state is not None:
+                    fs = float((res.guard_state[0, a, f, :, flt.G_N_FAILSAFE]
+                                / np.maximum(res.n_steps[0, a, f], 1)).mean())
+                    cell += f", fail-safe {fs:.5f} (ref {r_fs})"
+                cells.append(cell)
+            print(f"[scenario] fig9 {arm} {name} (gros, {F9_SEEDS} seeds, "
+                  f"{F9_TIME:.0f} s) by rate: " + "; ".join(cells))
+    ung, grd = runs9["unguarded"], runs9["guarded"]
+    gains = []
+    for f, r in enumerate(F9_RATES):
+        e_u = np.abs(ung.work[0, 1, f] / ung.exec_time[0, 1, f] - setpoint)
+        e_g = np.abs(grd.work[0, 1, f] / grd.exec_time[0, 1, f] - setpoint)
+        if r >= 0.10:
+            check(e_g.mean() < 0.5 * e_u.mean(), f"fig9 rate {r}: the guard "
+                  f"does not cut pi_rls's error ({e_g.mean()} vs "
+                  f"{e_u.mean()})")
+            gains.append(f"{r:g}: {e_u.mean() / e_g.mean():.2f}x")
+    # the rate-0 lane: a guard that counted no invalid signal changed
+    # nothing, bit for bit
+    clean_ok = grd.guard_state[0, :, 0, :, flt.G_N_INVALID] == 0
+    same = np.ones_like(clean_ok)
+    for k in ("energy", "work", "exec_time", "n_steps"):
+        same &= getattr(grd, k)[0, :, 0] == getattr(ung, k)[0, :, 0]
+    for k in ("progress_mean", "power_mean", "progress_hist", "pcap_hist"):
+        a_, b_ = grd.summary[k][0, :, 0], ung.summary[k][0, :, 0]
+        same &= (a_ == b_).reshape(a_.shape[:2] + (-1,)).all(-1)
+    check(bool(same[clean_ok].all()) and clean_ok.sum() > 0,
+          f"fig9: guarded rate-0 runs with no invalid signal differ from "
+          f"the unguarded ones ({int(same[clean_ok].sum())} of "
+          f"{int(clean_ok.sum())} equal)")
+    print(f"[scenario] fig9: the guard cuts pi_rls's tracking error at "
+          f"rates >= 0.10 by " + ", ".join(gains) + " (unguarded over "
+          f"guarded); rate-0 lane: {int(clean_ok.sum())} of {clean_ok.size} "
+          f"guarded runs counted no invalid signal, all bit-equal to the "
+          f"unguarded runs; worst cell {worst9:.2f} combined standard "
+          f"errors off the reference (bar {SCEN_SIGMAS})")
+    del runs9, ung, grd
+
+    # ---- c. the main grid under every axis at once ----------------------
+    chaos = chaos_schedule(flt, 0.10)
+    kw = dict(main_kw, workloads=sched, detector=DetectorConfig(),
+              faults=chaos, guard=guard, record_events=True,
+              policies=PIPolicy())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sim.sweep(*main_grid, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_runs = int(res.energy.size)
+    check(K.LAUNCHES == 0, f"all axes: {K.LAUNCHES} kernel launches")
+    check(res.energy.shape == (len(main_grid[0]), len(main_grid[1]),
+                               len(main_grid[2])), "all-axes grid shape")
+    for k, v in (("energy", res.energy), ("work", res.work),
+                 ("exec_time", res.exec_time),
+                 ("progress_mean", res.summary["progress_mean"]),
+                 ("power_mean", res.summary["power_mean"]),
+                 ("guard_state", res.guard_state), ("events", res.events)):
+        check(np.isfinite(v).all(), f"all axes: {k} not finite")
+    check(res.events.shape == res.energy.shape + (evt.ring_dim(64),),
+          "ring shape")
+    ring_mb = res.events.nbytes / 1e6
+    t1 = time.perf_counter()
+    sub = sim.sweep(main_grid[0], main_grid[1], SUB_SEEDS, **kw)
+    sub_wall = time.perf_counter() - t1
+    for k in ("energy", "work", "exec_time", "n_steps", "detections",
+              "guard_state", "events"):
+        check(np.array_equal(getattr(sub, k),
+                             getattr(res, k)[:, :, SUB_SEEDS]),
+              f"all axes: sub-grid {k} != the full grid's rows")
+    for k in ("progress_mean", "progress_std", "power_mean",
+              "progress_hist", "pcap_hist"):
+        check(np.array_equal(sub.summary[k], res.summary[k][:, :, SUB_SEEDS]),
+              f"all axes: sub-grid summary {k} != the full grid's rows")
+    # decoded rings against the guard's counters and the scripts
+    P, E, S = res.energy.shape
+    whole, picked = 0, [(p, e, s) for p in range(P)
+                        for e in sorted({min(1, E - 1), E // 2, E - 1})
+                        for s in sorted({0, S // 2, S - 1})]
+    for idx in picked:
+        ring = res.events[idx]
+        ev = evt.decode_ring(ring)
+        check(ev == sorted(ev, key=lambda x: x.t), f"ring {idx} unordered")
+        if evt.ring_total(ring) > evt.ring_capacity(ring):
+            continue
+        whole += 1
+        by = lambda c: evt.filter_events(ev, code=c)
+        check(len(by(evt.EV_RECOVERY_RESET))
+              == int(res.guard_state[idx][flt.G_N_RESETS]),
+              f"ring {idx}: resets vs the guard's counter")
+        check(len(by(evt.EV_DETECTOR_ALARM)) == int(res.detections[idx]),
+              f"ring {idx}: alarms vs the detector's counter")
+        check([(e.t, e.payload[:2]) for e in by(evt.EV_PHASE_FLIP)]
+              == [(float(b), (float(i), i + 1.0)) for i, b in
+                  enumerate(sched.boundaries()) if b < kw["max_time"]],
+              f"ring {idx}: phase flips {by(evt.EV_PHASE_FLIP)}")
+        for e in by(evt.EV_FAULT_ENTER):
+            check(bool(chaos.active(e.t)), f"ring {idx}: enter at {e.t}")
+        for e in by(evt.EV_FAULT_EXIT):
+            check(not chaos.active(e.t), f"ring {idx}: exit at {e.t}")
+    check(whole > 0, "no picked ring held its whole timeline")
+    print(f"[scenario] main grid under every axis ({n_runs} runs x 2048 "
+          f"steps, summary, packed PI; fig8's schedule, DetectorConfig(), "
+          f"chaos_schedule(0.10), GuardConfig(hold_k=3, failsafe_k=60), "
+          f"64-slot rings): {wall:.3f} s wall ({n_runs / wall:.0f} runs/s), "
+          f"peak device memory {peak:.3f} GiB (rings {ring_mb:.1f} MB); all "
+          f"finite, every Poisson draw resolved; mean alarms a run "
+          f"{res.detections.mean():.3f}, fail-safe periods a run "
+          f"{res.guard_state[..., flt.G_N_FAILSAFE].mean():.3f}, events a "
+          f"run {res.events[..., evt.H_TOTAL].mean():.2f}; sub-grid of "
+          f"{len(SUB_SEEDS)} seeds ({sub.energy.size} runs) bit-equal to "
+          f"its rows ({sub_wall:.3f} s); {whole} of {len(picked)} decoded "
+          f"rings held their whole timeline and agree with the guard's and "
+          f"the detector's counters and the scripts' windows")
+    del res, sub
+    t0 = time.perf_counter()
+    prof = device_breakdown(
+        lambda: sim.sweep(*main_grid, **dict(kw, max_time=float(
+            PROFILE_STEPS))),
+        f"all axes, {n_runs} runs x {PROFILE_STEPS} steps", host_ops=False)
+    if prof is not None:
+        print(f"[scenario] all axes: {prof['launches'] / PROFILE_STEPS:.1f} "
+              f"device launches per step ({prof['launches']} in "
+              f"{PROFILE_STEPS} steps, set-up included), device idle "
+              f"{100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}% of the "
+              f"profiled wall ({time.perf_counter() - t0:.1f} s with the "
+              f"profiler's own work)")
+    walls["all axes"], walls["its sub-grid"] = wall, sub_wall
+    # launches per step by axis set: the step loop of a 1,024-run batch,
+    # packed PI
+    t0 = time.perf_counter()
+    axis_sets = {"none": {}, "schedule": dict(workloads=sched),
+                 "detector": dict(detector=DetectorConfig()),
+                 "faults": dict(faults=chaos), "guard": dict(guard=guard),
+                 "recorder": dict(record_events=True),
+                 "all": dict(workloads=sched, detector=DetectorConfig(),
+                             faults=chaos, guard=guard, record_events=True)}
+    per_set = {}
+    for label, axes in axis_sets.items():
+        n = loop_launches(sim, flt, dev, AXIS_STEPS, **axes)
+        if n is not None:
+            per_set[label] = n
+    if per_set:
+        print(f"[scenario] device launches per step of the step loop by "
+              f"axis set (packed PI, 1,024 runs; {2 * AXIS_STEPS} steps less "
+              f"{AXIS_STEPS}): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in per_set.items())
+              + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- d. bitwise neutrality at the main grid's size ------------------
+    kw512 = dict(main_kw, max_time=512.0, backend="scan",
+                 policies=PIPolicy())
+    t0 = time.perf_counter()
+    plain = sim.sweep(*main_grid, **kw512)
+    armed = sim.sweep(*main_grid, **kw512, faults=flt.FaultSchedule(()),
+                      guard=flt.GuardConfig(), record_events=True)
+    walls["neutrality (2 sweeps)"] = time.perf_counter() - t0
+    ok = armed.guard_state[..., flt.G_N_INVALID] == 0
+    same = np.ones_like(ok)
+    for k in ("energy", "work", "exec_time", "n_steps"):
+        same &= getattr(plain, k) == getattr(armed, k)
+    for k in ("progress_mean", "progress_std", "power_mean",
+              "progress_hist", "pcap_hist"):
+        a_, b_ = plain.summary[k], armed.summary[k]
+        same &= (a_ == b_).reshape(a_.shape[:3] + (-1,)).all(-1)
+    quiet = armed.events[..., evt.H_TOTAL] == 0
+    check(bool(same[ok].all()) and bool(quiet[ok].all()),
+          f"neutrality: {int((~same & ok).sum())} runs with no invalid "
+          f"signal differ, {int((~quiet & ok).sum())} recorded events")
+    print(f"[scenario] neutrality (phase 3's grid cut to 512 steps, scan "
+          f"engine, packed PI): with FaultSchedule([]), GuardConfig() and "
+          f"64-slot rings, {int(ok.sum())} of {ok.size} runs counted no "
+          f"invalid signal, and every one of them equals the plain sweep's "
+          f"run bit for bit with an empty ring ({int(same.sum())} equal in "
+          f"all)")
+    del plain, armed
+    print(f"[scenario] walls: " + ", ".join(f"{k} {v:.3f} s"
+                                             for k, v in walls.items())
+          + f"; phase 13 in {time.perf_counter() - started:.1f} s; on {smi}")
 
 
 def paper_workflow(dev, main_grid, main_kw, kernel_means, smi) -> None:
@@ -2007,6 +2484,7 @@ def main() -> int:
     paper_workflow(dev, main_grid, main_kw, kernel_means, smi)  # phase 11
     policies_phase(dev, main_grid, main_kw, main_out, main_summary,
                    smi)                                   # phase 12
+    scenarios_phase(dev, main_grid, main_kw, smi)         # phase 13
 
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f}"
           f" s, the kernels' build included")

@@ -9,8 +9,11 @@ port's tensors, so both packages compute from identical inputs.
 LM substrate's parameter and KV-cache trees (dicts and tuples of
 arrays), `carry_from_reference` for the scan engine's per-run state
 (the reference's ``_Carry``, typed PI or packed policy state),
-`policy_values_from_reference` for a grid of packed policy values, and
-`static_fit_from_reference` for an identified static characteristic. Nothing here imports the
+`rows_from_reference` (alias `policy_values_from_reference`) for packed
+rows (policy values, detector rows, the guard vector, recorder rings),
+`schedule_from_reference` and `faults_from_reference` for packed
+schedules and fault rows, and `static_fit_from_reference` for an
+identified static characteristic. Nothing here imports the
 reference: it only reads arrays through ``np.asarray`` and fields by
 name.
 """
@@ -79,7 +82,8 @@ def carry_from_reference(carry, device: Union[None, str, torch.device] = None
     bool flags, int32 step counts, float32 otherwise. Its policy state is
     the typed `PIState` of the fixed-gain PI fast path or the packed (B,
     POLICY_STATE_DIM) vector; the detector, fault, guard and recorder
-    fields must be None (the port does not carry them yet)."""
+    fields come across as float32 rows, or None where the reference's are
+    None."""
     from repro_torch.core import sim
     from repro_torch.core.controller import PIState
     from repro_torch.core.plant import PlantState
@@ -94,28 +98,47 @@ def carry_from_reference(carry, device: Union[None, str, torch.device] = None
     def group(cls, nt):
         return cls(*(leaf(getattr(nt, f)) for f in cls._fields))
 
-    for f in ("det", "fstate", "guard", "events"):
-        if getattr(carry, f, None) is not None:
-            raise NotImplementedError(
-                f"the reference carry holds {f} state, which the port's "
-                "scan engine does not carry yet (ROADMAP Queue 1 items 5-6)")
     pol = (group(PIState, carry.pol) if hasattr(carry.pol, "_fields")
            else leaf(carry.pol))
+    opt = lambda x: None if x is None else leaf(x)
     return sim._Carry(
         plant=group(PlantState, carry.plant), pol=pol,
         summ=group(sim._Summary, carry.summ),
-        **{f: leaf(getattr(carry, f)) for f in sim._Carry._fields
+        **{f: opt(getattr(carry, f, None)) for f in sim._Carry._fields
            if f not in ("plant", "pol", "summ")})
 
 
-def policy_values_from_reference(vals, device: Union[None, str,
-                                                     torch.device] = None
-                                 ) -> torch.Tensor:
-    """The reference's packed policy values (`repro.core.policies.
-    policy_values` rows, (..., POLICY_PARAM_DIM) float32) -> the same
-    rows as a float32 tensor on ``device`` (CUDA unless told otherwise),
-    kinds at slot 0 as given."""
+def rows_from_reference(vals, device: Union[None, str, torch.device] = None
+                        ) -> torch.Tensor:
+    """Packed float32 rows of the reference (policy values,
+    `detector_values` rows, a `guard_values` vector, flight-recorder
+    rings; any leading shape) -> the same values as a float32 tensor on
+    ``device`` (CUDA unless told otherwise)."""
     return _tensor(vals, resolve_device(device))
+
+
+def schedule_from_reference(sv, device: Union[None, str,
+                                              torch.device] = None):
+    """The reference's packed `ScheduleValues` (one schedule or stacked
+    per run) -> the port's `ScheduleValues` on ``device``."""
+    from repro_torch.core.workloads.schedule import ScheduleValues
+    dev = resolve_device(device)
+    return ScheduleValues(*(_tensor(getattr(sv, f), dev)
+                            for f in ScheduleValues._fields))
+
+
+def faults_from_reference(fv, device: Union[None, str, torch.device] = None):
+    """The reference's packed `FaultValues` (one schedule or stacked per
+    run) -> the port's `FaultValues` on ``device``."""
+    from repro_torch.core.faults import FaultValues
+    dev = resolve_device(device)
+    return FaultValues(*(_tensor(getattr(fv, f), dev)
+                         for f in FaultValues._fields))
+
+
+# the reference's packed policy values (`repro.core.policies.
+# policy_values` rows, kinds at slot 0) are rows like any other
+policy_values_from_reference = rows_from_reference
 
 
 def static_fit_from_reference(fit):

@@ -28,3 +28,10 @@ def fma(x: torch.Tensor, y, z) -> torch.Tensor:
         return torch.addcmul(f(z), x, f(y))
     d = lambda v: torch.as_tensor(v, device=x.device).to(torch.float64)
     return (d(x) * d(y) + d(z)).to(torch.float32)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of ``x``."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)

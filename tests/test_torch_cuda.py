@@ -847,3 +847,131 @@ def test_fit_offline_rl_on_the_card_recovers_the_optimal_action(dev):
             torch.cuda.set_sync_debug_mode(0)
     assert not [w for w in seen if "synchroniz" in str(w.message)
                 and "prototype" not in str(w.message)]
+
+
+# ---- the scenario axes on the card (phased workloads, detector, faults,
+# guard, flight recorder) ----------------------------------------------------
+
+def _scenario_batch(n_seeds=64):
+    """A batch of runs with every scenario axis on: two schedules, the
+    detector, two fault scripts, the guard and a 16-slot ring, through
+    the sweep's own row makers. Returns (prof, gains, seeds, pvals,
+    scenario) on the CPU."""
+    from repro_torch.core import faults as flt
+    from repro_torch.core.policies import PIPolicy
+    from repro_torch.core.plant import PROFILES
+    from repro_torch.core.workloads import (DetectorConfig,
+                                            stream_dgemm_schedule)
+    W = flt.FaultWindow
+    scripts = [flt.FaultSchedule((W("hb_dropout", 30.0, 40.0, p1=1.0),
+                                  W("meter_freeze", 30.0, 40.0),
+                                  W("meter_spike", 90.0, 20.0, p1=0.5)),
+                                 period=150.0),
+               flt.FaultSchedule((W("act_quant", 20.0, 50.0, p1=7.0),
+                                  W("crash", 100.0, 10.0)))]
+    scheds = [stream_dgemm_schedule("gros", dwell=40.0, cyclic=True),
+              stream_dgemm_schedule("gros", dwell=60.0, n_cycles=2)]
+    profs = [PROFILES["gros"], PROFILES["yeti"]]
+    extra, build, _ = sim._scenario_axes(profs, scheds, DetectorConfig(),
+                                         scripts)
+    prof, gains, seeds, pvals, idx = sim._grid(
+        profs, [0.1], range(n_seeds), 10.0, [PIPolicy()], (0,), extra)
+    scen = sim._scenario_rows(build, idx, flt.guard_values(device="cpu"),
+                              16)
+    return prof, gains, seeds, pvals, scen
+
+
+def test_scenario_step_loop_makes_no_host_sync(dev):
+    """Every scenario axis at once on the packed engine: over a whole run
+    the only synchronizing call is the one check that every Poisson draw
+    resolved, and the rings stay on the card."""
+    import warnings
+    prof, gains, seeds, pvals, scen = _scenario_batch()
+    run = sim._scan_core(256, collect=False, typed_pi=False, n_events=16)
+    args = [x.to(dev) for x in (prof, gains, seeds)]
+    kw = scen.inputs(dev)
+    pvals = pvals.to(dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, c = run(*args, 1e9, 256.0, 1.0, 30.0, pvals, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    for f in ("det", "fstate", "guard", "events"):
+        assert getattr(c, f).is_cuda, f
+    assert float(c.events[:, 0].max()) > 0
+
+
+def test_scenario_ring_on_the_card_matches_the_cpu(dev):
+    """The same rows on the card and on the CPU: decoded timelines with
+    the same events in the same order (codes and sources exactly, times
+    and payloads at rtol 1e-5), guard counters and alarm counts equal."""
+    from repro_torch.obs import events as evt
+    prof, gains, seeds, pvals, scen = _scenario_batch(16)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        run = sim._scan_core(256, collect=False, typed_pi=False,
+                             n_events=16)
+        _, c = run(prof.to(d), gains.to(d), seeds.to(d), 1e9, 256.0, 1.0,
+                   30.0, pvals.to(d), **scen.inputs(d))
+        out[d.type] = {f: getattr(c, f).cpu() for f in
+                       ("det", "guard", "events")}
+    a, b = out["cuda"], out["cpu"]
+    same = 0
+    for ra, rb in zip(evt.decode_grid(a["events"]),
+                      evt.decode_grid(b["events"])):
+        ka = [(e.code, e.source) for e in ra]
+        same += ka == [(e.code, e.source) for e in rb]
+        if ka == [(e.code, e.source) for e in rb]:
+            np.testing.assert_allclose([e.t for e in ra], [e.t for e in rb],
+                                       rtol=1e-5)
+    assert same >= 0.9 * len(a["events"])
+    assert float(a["events"][:, 0].sum()) > 0
+
+
+def test_schedule_gather_on_the_card_equals_the_cpu(dev):
+    """`active_profile` over per-run packed rows: the same rows and phase
+    indices on the card as on the CPU, bit for bit, on boundaries and
+    cyclic wraps."""
+    from repro_torch.core.workloads import active_profile
+    _, _, _, _, scen = _scenario_batch(8)
+    sv = scen.sched
+    ends = sv.ends[:, :4].numpy()
+    t = np.concatenate([ends[np.isfinite(ends)], [0.0, 1e4, 79.999, 80.0,
+                                                  240.0, 1e-3]])
+    t = torch.from_numpy(np.resize(t.astype(np.float32), sv.ends.shape[0]))
+    row_c, idx_c = active_profile(sv, t)
+    sv_d = type(sv)(*(x.to(dev) for x in sv))
+    row_d, idx_d = active_profile(sv_d, t.to(dev))
+    assert torch.equal(idx_d.cpu(), idx_c)
+    assert torch.equal(row_d.cpu(), row_c)
+
+
+def test_scenario_sweep_on_the_card_matches_the_cpu(dev):
+    """A phased, detected, faulted, guarded sweep on the card and on the
+    CPU: seed means at rtol 0.01 (the same streams, float paths that
+    differ by ulps), as the scan engine is held."""
+    from repro_torch.core import faults as flt
+    from repro_torch.core.workloads import DetectorConfig, Phase, \
+        PhaseSchedule
+    kw = dict(total_work=1e9, max_time=256.0, summary_warmup=30,
+              collect_traces=False,
+              workloads=PhaseSchedule((Phase(100.0),
+                                       Phase(200.0, scale={"K_L": 2.0}))),
+              detector=DetectorConfig(), guard=True,
+              faults=[flt.FaultSchedule(), flt.FaultSchedule((
+                  flt.FaultWindow("hb_dropout", 50.0, 30.0, p1=1.0),))])
+    a = sim.sweep(["gros", "yeti"], [0.1], range(32), device=dev, **kw)
+    b = sim.sweep(["gros", "yeti"], [0.1], range(32), device="cpu", **kw)
+    for k in ("progress_mean", "power_mean"):
+        np.testing.assert_allclose(a.summary[k].mean(-1),
+                                   b.summary[k].mean(-1), rtol=0.01)
+    np.testing.assert_allclose(a.energy.mean(-1), b.energy.mean(-1),
+                               rtol=0.01)
+    np.testing.assert_allclose(a.detections.mean(-1), b.detections.mean(-1),
+                               rtol=0.1, atol=0.1)

@@ -32,7 +32,10 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.core.identify, repro_torch.core.signals, "
             "repro_torch.core.poisson, repro_torch.core.adaptive, "
             "repro_torch.core.policies, repro_torch.core.plane, "
-            "repro_torch.core.fma\n"
+            "repro_torch.core.fma, repro_torch.core.phases, "
+            "repro_torch.core.workloads, repro_torch.core.faults, "
+            "repro_torch.core.workloads.schedule, "
+            "repro_torch.core.workloads.detect, repro_torch.obs.events\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -121,3 +124,35 @@ def test_entry_points_refuse_to_run_without_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_scenario_makers_refuse_to_run_without_cuda():
+    """The scenario slice's tensor-making functions and entry points run
+    on CUDA by default, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    from repro_torch.core import faults as flt
+    from repro_torch.core import sim
+    from repro_torch.core.plant import PROFILES
+    from repro_torch.core.workloads import (DetectorConfig, Phase,
+                                            PhaseSchedule, detector_values)
+    from repro_torch.obs import events as evt
+    sched = PhaseSchedule((Phase(10.0),))
+    makers = [lambda: sched.resolve("gros"),
+              lambda: flt.FaultSchedule().resolve(),
+              lambda: detector_values(DetectorConfig(), PROFILES["gros"]),
+              lambda: flt.guard_values(), lambda: flt.guard_init(),
+              lambda: flt.fault_state_init(PROFILES["gros"]),
+              lambda: evt.ring_init(8),
+              lambda: sim.sweep("gros", [0.1], [0], total_work=10.0,
+                                max_time=64.0, workloads=sched),
+              lambda: sim.sweep("gros", [0.1], [0], total_work=10.0,
+                                max_time=64.0, faults=flt.FaultSchedule(),
+                                guard=True, record_events=True),
+              lambda: sim.simulate_closed_loop(
+                  "gros", 0.1, total_work=10.0, max_time=64.0,
+                  detector=DetectorConfig())]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert sched.resolve("gros", device="cpu").ends.device.type == "cpu"

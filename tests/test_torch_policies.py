@@ -240,13 +240,25 @@ def test_plane_step_runs_the_policy_and_rejects_detector_and_guard():
         progress=prog, power=None, dt=torch.tensor(1.0), gains=gains))
     assert torch.equal(new, ref) and torch.equal(pcap, ref_pcap)
     assert det is None and change == 0.0
-    for kw, item in ((dict(det_vals=torch.zeros(4)), "item 5"),
-                     (dict(det_on=torch.ones(8)), "item 5"),
-                     (dict(guard_vals=torch.zeros(4)), "item 6"),
-                     (dict(guard_on=torch.ones(8)), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            plane.plane_step(gains, ALL4, vals, state, gains.pcap_max,
-                             prog, None, 1.0, **kw)
+    # the detector and the guard are ported: a detector still in its
+    # arming window (no alarm possible), masked rows, and a guard that
+    # sees valid signals each leave the policy step bit for bit as it was
+    from repro_torch.core import faults as flt
+    from repro_torch.core.workloads import (DetectorConfig, detect_init,
+                                            detector_values)
+    dv = detector_values(DetectorConfig(), PROFILES["gros"],
+                         device="cpu").expand(8, -1)
+    ds = detect_init(dv, gains)
+    gv, gs = flt.guard_values(device="cpu"), flt.guard_init((8,),
+                                                            device="cpu")
+    for kw in (dict(det_vals=dv, det_state=ds),
+               dict(det_vals=dv, det_state=ds, det_on=torch.zeros(8)),
+               dict(guard_vals=gv, guard_state=gs),
+               dict(guard_vals=gv, guard_state=gs, guard_on=torch.zeros(8))):
+        out = plane.plane_step(gains, ALL4, vals, state, gains.pcap_max,
+                               prog, None, torch.tensor(1.0), **kw)
+        assert torch.equal(out[0], ref) and torch.equal(out[2], ref_pcap)
+        assert not torch.as_tensor(out[3]).any()
 
 
 def test_harvest_dataset_waits_for_the_executor():

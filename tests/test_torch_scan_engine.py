@@ -35,6 +35,9 @@ from repro.core.plant import PROFILES as JPROFILES  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import plane, poisson, sim  # noqa: E402
 from repro_torch.core.plant import PROFILES, simulate  # noqa: E402
+from repro_torch.core.faults import FaultSchedule, guard_values  # noqa: E402
+from repro_torch.core.workloads import (DetectorConfig, Phase,  # noqa: E402
+                                        PhaseSchedule, detector_values)
 from repro_torch.kernels.closed_loop import ops  # noqa: E402
 
 CPU = dict(device="cpu")
@@ -53,7 +56,12 @@ def _flat(c, prefix=""):
 
 def _assert_carry_close(mine, ref, tag):
     for (k, a), (k2, b) in zip(_flat(mine), _flat(ref)):
-        assert k == k2 and a.dtype == b.dtype, (tag, k, a.dtype, b.dtype)
+        # scenario state (detector, faults, guard, recorder): None on both
+        # sides when its axis is off
+        assert k == k2 and (a is None) == (b is None), (tag, k)
+        if a is None:
+            continue
+        assert a.dtype == b.dtype, (tag, k, a.dtype, b.dtype)
         if a.dtype in (torch.bool, torch.int32) or k.endswith("_hist"):
             assert torch.equal(a, b), (tag, k)
         else:
@@ -139,21 +147,37 @@ def test_engine_step_matches_reference_typed_pi_on_its_own_draws():
     assert seen | seen2 == {(n, a) for n in range(4) for a in (False, True)}
 
 
+def _one_run(x):
+    """A scenario input of one run, as a batch of one."""
+    return type(x)(*(v[None] for v in x)) if isinstance(x, tuple) \
+        else x[None]
+
+
+_SV = _one_run(PhaseSchedule((Phase(10.0),)).resolve("gros", device="cpu"))
+_DV = _one_run(detector_values(DetectorConfig(), PROFILES["gros"],
+                               device="cpu"))
+_FV = _one_run(FaultSchedule().resolve(device="cpu"))
+_GV = guard_values(device="cpu")
+
+
 @pytest.mark.parametrize("kwargs,error", [
     (dict(policy=("pi", "dutycycle"), policy_vals=torch.zeros(1, 10),
-          detector=object()), NotImplementedError),
+          detector=_DV, cap_limit=100.0), NotImplementedError),
     (dict(policy=("pi_rls",), policy_vals=torch.zeros(1, 10),
-          faults=object()), NotImplementedError),
+          faults=_FV, fault_u=torch.zeros(1), cap_limit=90.0),
+     NotImplementedError),
     (dict(policy=("pi", "dutycycle"), typed_pi=True), ValueError),
     (dict(cap_limit=100.0), NotImplementedError),
-    (dict(schedule=object()), NotImplementedError),
-    (dict(detector=object()), NotImplementedError),
-    (dict(faults=object()), NotImplementedError),
-    (dict(guard=object()), NotImplementedError)])
+    (dict(schedule=_SV, cap_limit=100.0), NotImplementedError),
+    (dict(faults=_FV, fault_u=torch.zeros(1)), ValueError),
+    (dict(guard=_GV), ValueError),
+    (dict(guard=_GV, cap_limit=1.0), NotImplementedError)])
 def test_engine_step_rejects_what_is_not_ported(kwargs, error):
-    """What later slices bring raises NotImplementedError naming its
-    ROADMAP item, on the typed and the packed path; the typed fast path
-    refuses a branch set other than ("pi",), as the reference does."""
+    """What later slices bring (the fleet's ``cap_limit``) raises
+    NotImplementedError naming its ROADMAP item, on the typed and the
+    packed path, with the scenario inputs too; the typed fast path refuses
+    a branch set other than ("pi",), faults and the guard, as the
+    reference does."""
     prof = sim._unpack_profile(sim.profile_values(PROFILES["gros"])[None])
     gains = plane.unpack_gains(sim.gains_values(
         sim.PIGains.from_model(PROFILES["gros"], 0.1))[None])

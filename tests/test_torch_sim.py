@@ -22,6 +22,9 @@ from repro_torch.core.energy import (pareto_front, summarize_run,  # noqa: E402
 from repro_torch.core.adaptive import RLSConfig  # noqa: E402
 from repro_torch.core.plant import PROFILES  # noqa: E402
 from repro_torch.core.policies import DutyCyclePolicy, PIPolicy  # noqa: E402
+from repro_torch.core.faults import FaultSchedule  # noqa: E402
+from repro_torch.core.workloads import (DetectorConfig, Phase,  # noqa: E402
+                                        PhaseSchedule)
 
 CPU = dict(device="cpu")
 
@@ -191,6 +194,9 @@ def test_pareto_front_extraction():
 
 
 NOT_YET = (NotImplementedError, "ROADMAP")
+KERNEL_ONLY = (ValueError, "fixed-gain PI path only")
+TYPED_ONLY = (ValueError, "typed_pi")
+HOLD = PhaseSchedule((Phase(50.0),))
 
 
 @pytest.mark.parametrize("kwargs,error", [
@@ -199,16 +205,20 @@ NOT_YET = (NotImplementedError, "ROADMAP")
     (dict(adaptive=RLSConfig(), policies=PIPolicy()),
      (ValueError, "not both")),
     (dict(policies=[]), (ValueError, "at least one Policy")),
-    (dict(workloads=object()), NOT_YET), (dict(detector=object()), NOT_YET),
-    (dict(faults=object()), NOT_YET), (dict(guard=True), NOT_YET),
-    (dict(record_events=True), NOT_YET), (dict(chunk_size=4), NOT_YET),
+    (dict(backend="kernel", workloads=HOLD), KERNEL_ONLY),
+    (dict(backend="kernel", detector=DetectorConfig()), KERNEL_ONLY),
+    (dict(typed_pi=True, faults=FaultSchedule()), TYPED_ONLY),
+    (dict(typed_pi=True, guard=True), TYPED_ONLY),
+    (dict(record_events=-3), (ValueError, "record_events")),
+    (dict(chunk_size=4), NOT_YET),
     (dict(devices="all"), NOT_YET), (dict(durable="/nonexistent"), NOT_YET),
-    (dict(backend="scan", adaptive=RLSConfig(), workloads=object()),
-     NOT_YET)])
+    (dict(backend="scan", adaptive=RLSConfig(), workloads=HOLD,
+          consume=print), NOT_YET)])
 def test_sweep_rejects_what_the_kernel_cannot_run(kwargs, error):
     """What later slices bring raises NotImplementedError naming its
-    ROADMAP item; the policy axis's misuses raise the reference's
-    ValueErrors."""
+    ROADMAP item; the policy axis's misuses and the scenario axes on the
+    paths that cannot carry them (the kernel route, the typed PI path)
+    raise the reference's ValueErrors."""
     with pytest.raises(error[0], match=error[1]):
         sim.sweep("gros", [0.1], [0], total_work=100.0, max_time=64.0,
                   **kwargs, **CPU)
@@ -220,10 +230,14 @@ def test_sweep_rejects_what_the_kernel_cannot_run(kwargs, error):
      (ValueError, "not both")),
     (dict(policy=DutyCyclePolicy(), design=PROFILES["dahu"]),
      (ValueError, "design= only applies")),
-    (dict(workload=object()), NOT_YET), (dict(detector=object()), NOT_YET),
-    (dict(faults=object()), NOT_YET), (dict(guard=True), NOT_YET),
-    (dict(record_events=True), NOT_YET)])
+    (dict(workload=HOLD, init=object()), NOT_YET),
+    (dict(detector=DetectorConfig(), init=object()), NOT_YET),
+    (dict(faults=FaultSchedule(), init=object()), NOT_YET),
+    (dict(guard=True, init=object()), NOT_YET),
+    (dict(record_events=0), (ValueError, "record_events"))])
 def test_simulate_rejects_what_the_kernel_cannot_run(kwargs, error):
+    """Resuming (``init=``) waits for ROADMAP Queue 1 item 7, with every
+    scenario argument too; a ring needs a positive size."""
     with pytest.raises(error[0], match=error[1]):
         sim.simulate_closed_loop("gros", 0.1, total_work=100.0,
                                  max_time=64.0, **kwargs, **CPU)
