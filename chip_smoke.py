@@ -123,7 +123,27 @@ Phases, each of which fails the run if a check fails:
    share (a 256-step profile), and the step loop's launches per step by
    axis set; and bitwise neutrality at the main grid's size (512 steps):
    a no-op fault script, an untriggered guard and the recorder leave
-   every run with no invalid signal equal to the plain sweep's.
+   every run with no invalid signal equal to the plain sweep's;
+14. the execution layer and the NRM runtime on the card (`[runtime]`
+   lines), which bring no kernel of their own: (a) phase 3's main grid
+   in chunks of 16,384 (exactly 7 seeds-route launches, every output
+   bit-equal to phase 3's one-shot sweep; wall, peak memory); (b) a
+   1,013,760-run summary grid in chunks of 131,072 (wall, runs/s, peak
+   device memory under half of what the grid would hold one-shot, beside
+   a one-shot grid of about one chunk, a 97-seed sub-grid bit-equal to
+   its own one-shot sweep); (c)
+   the scan engine on 4,096 runs at 2,048 steps in 2 chunks, bit-equal
+   to one-shot, with both walls; (d) `sweep(durable=dir)` of the main
+   grid under `FlakyGridFn` transients (one injected fault, one CUDA
+   out-of-memory error), then the same campaign in a spawned child that
+   SIGKILLs itself after 3 commits and `resume_campaign(dir)` finishing
+   it, both bit-equal to phase 3; (e) `NRM.run_simulated` on gros at
+   eps 0.0 and 0.1 over 8 seeds (256-step bucket) held to the reference
+   tests' headline bars, a 3-segment resumed run whose work keeps
+   rising, and 500 `control_step` periods on a `SimulatedPowerActuator`
+   on the card and on the CPU (ms per period); (f) `serve.main` with
+   ``--power`` on qwen3-8b at full width, its tokens equal to phase 7's,
+   its decode tok/s against phase 7's and the simulated energy and time.
 
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
@@ -740,7 +760,7 @@ def serving_path(dev):
           f"layers, prompt {P}: rel L2 err "
           + " ".join(f"{e:.3e}" for e in errs)
           + f" ({time.perf_counter() - t0:.1f} s)")
-    return launches, params, batch
+    return launches, params, batch, res
 
 
 def device_breakdown(fn, label: str, host_ops: bool = True,
@@ -816,7 +836,7 @@ def attention_timings(dev, serving, errs) -> list:
     from repro_torch.launch import serve
     from repro_torch.models import ApplyOptions, decode_step, prefill
 
-    launches, params, batch = serving
+    launches, params, batch, _ = serving
     cfg = get_config("qwen3-8b")
     kern = ApplyOptions(attn_impl="cuda")
     with torch.no_grad():
@@ -2158,6 +2178,315 @@ def policies_phase(dev, main_grid, main_kw, main_out, main_summary,
           f"s; phase 12 in {time.perf_counter() - started:.1f} s; on {smi}")
 
 
+# ---- phase 14: the execution layer and the NRM runtime on the card --------
+
+# (a) the main grid in chunks: ceil(101,376 / 16,384) = 7 seeds-route
+# launches; (d) the same chunks under the campaign supervisor
+RT_CHUNK = 16384
+RT_LAUNCHES = 7
+# (b) a 1,013,760-run summary grid: gros, dahu, yeti x 11 eps x 30,720
+# seeds in 131,072-run chunks (8 launches); a 97-seed sub-grid (every
+# 320th seed and the last) against its own one-shot sweep; peak device
+# memory (above what was allocated before the call) held to at most
+# BIG_PEAK_X times that of a one-shot grid of about one chunk (3 x 11 x
+# 3,972 = 131,076 runs): each chunk's tensors are freed before the next
+# chunk's are made, so the grid's size does not enter the bound
+BIG_SEEDS, BIG_CHUNK = 30720, 131072
+BIG_SUB = list(range(0, BIG_SEEDS, 320)) + [BIG_SEEDS - 1]
+BIG_PEAK_X = 1.3
+CHUNK_SEEDS = 3972
+# (c) the scan engine chunked: 4,096 runs at the paper's horizon (2,048
+# steps) in 2 chunks
+SCAN_RT = (("gros", "dahu"), (0.1, 0.2), range(1024))
+SCAN_CHUNK = 2048
+# (d) the spawned campaign kills itself after this many commits
+KILL_AFTER = 3
+# (e) run_simulated at eps 0.0 and 0.1 over 8 seeds, the reference
+# tests' headline bars (tests/test_system.py); max_time 256 s is the
+# engine's smallest bucket (256 steps), room for 1,500 units of work at
+# ~22 Hz
+NRM_SEEDS, NRM_MT, NRM_WORK = range(8), 256.0, 1500.0
+CTRL_PERIODS = 500
+
+
+def _same_runs(res, main_out, main_summary, what):
+    """Every output of a main-grid sweep equals phase 3's one-shot
+    sweep's, bit for bit."""
+    got = {"energy": res.energy, "work": res.work, "t": res.exec_time,
+           "steps": res.n_steps}
+    for k, v in main_out.items():
+        check(np.array_equal(got[k], v), f"{what}: {k} != phase 3's")
+    for k, v in main_summary.items():
+        check(np.array_equal(res.summary[k], v),
+              f"{what}: summary {k} != phase 3's")
+
+
+def runtime_phase(dev, main_grid, main_kw, main_out, main_summary, serve7,
+                  smi) -> None:
+    """Phase 14: the execution layer (chunked, sharded, durable sweeps,
+    resume) and the NRM runtime (`NRM.run_simulated`, `control_step`,
+    `serve --power`) on the card. They bring no kernel of their own: the
+    chunked and durable sweeps launch the closed-loop kernel once per
+    chunk, `serve --power` the attention kernels."""
+    import shutil
+
+    import torch
+    from repro_torch.configs.base import PowerControlConfig
+    from repro_torch.core import sim, supervisor
+    from repro_torch.core.energy import summarize_run, tradeoff_table
+    from repro_torch.core.nrm import NRM
+    from repro_torch.kernels.closed_loop import kernel as K
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import serve
+    from repro_torch.obs.retry import RetryPolicy
+    started = time.perf_counter()
+    n_main = int(np.prod(main_out["energy"].shape))
+
+    def timed_sweep(*grid, **kw):
+        """(result, wall s, peak device memory above what was allocated
+        before the call in GiB, launches by route)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.ROUTE_LAUNCHES.update(seeds=0, noise=0)
+        t0 = time.perf_counter()
+        res = sim.sweep(*grid, **kw)
+        wall = time.perf_counter() - t0
+        return (res, wall, (torch.cuda.max_memory_allocated() - base)
+                / 2**30, dict(K.ROUTE_LAUNCHES))
+
+    # ---- a. the main grid in chunks on the kernel route -----------------
+    res, wall_a, peak, routes = timed_sweep(*main_grid, chunk_size=RT_CHUNK,
+                                            **main_kw)
+    check(routes == {"seeds": RT_LAUNCHES, "noise": 0},
+          f"chunked main grid launches {routes}: {RT_LAUNCHES} expected")
+    _same_runs(res, main_out, main_summary, "chunked main grid")
+    print(f"[runtime] a. main grid ({n_main} runs x 2048, summary) in "
+          f"chunks of {RT_CHUNK}: {wall_a:.3f} s wall ({n_main / wall_a:.0f}"
+          f" runs/s), seeds-route launches {routes['seeds']}, peak device "
+          f"memory {peak:.3f} GiB (here and below: above what the call "
+          f"found allocated); every output bit-equal to phase 3's one-shot "
+          f"sweep")
+    del res
+
+    # ---- b. a 1,013,760-run grid in 131,072-run chunks ------------------
+    big = (main_grid[0], main_grid[1], range(BIG_SEEDS))
+    _, w_chunk, chunk_peak, _ = timed_sweep(big[0], big[1],
+                                            range(CHUNK_SEEDS), **main_kw)
+    res, wall_b, peak_b, routes = timed_sweep(*big, chunk_size=BIG_CHUNK,
+                                              **main_kw)
+    n_big = int(np.prod(res.energy.shape))
+    n_chunks = -(-n_big // BIG_CHUNK)
+    check(routes == {"seeds": n_chunks, "noise": 0},
+          f"1M grid launches {routes}: {n_chunks} expected")
+    grid_peak = chunk_peak * n_big / (33 * CHUNK_SEEDS)
+    check(peak_b <= BIG_PEAK_X * chunk_peak, f"1M grid peak {peak_b:.3f} "
+          f"GiB > {BIG_PEAK_X} x a one-chunk grid's {chunk_peak:.3f} GiB")
+    for k in ("progress_mean", "power_mean"):
+        check(np.isfinite(res.summary[k]).all(), f"1M grid {k} not finite")
+    sub = sim.sweep(big[0], big[1], BIG_SUB, **main_kw)
+    for name, a, b in (("energy", res.energy, sub.energy),
+                       ("t", res.exec_time, sub.exec_time),
+                       ("steps", res.n_steps, sub.n_steps)) + tuple(
+            (k, res.summary[k], sub.summary[k]) for k in (
+                "progress_mean", "power_mean", "progress_hist",
+                "pcap_hist")):
+        check(np.array_equal(a[:, :, BIG_SUB], b),
+              f"1M grid: {len(BIG_SUB)}-seed sub-grid {name} differs")
+    print(f"[runtime] b. {n_big} runs x 2048 (summary) in {n_chunks} chunks "
+          f"of {BIG_CHUNK}: {wall_b:.3f} s wall ({n_big / wall_b:.0f} "
+          f"runs/s), seeds-route launches {routes['seeds']}, peak device "
+          f"memory {peak_b:.3f} GiB, {peak_b / chunk_peak:.2f}x a one-shot "
+          f"grid of {33 * CHUNK_SEEDS} runs ({chunk_peak:.3f} GiB, "
+          f"{w_chunk:.3f} s; the whole grid one-shot would hold "
+          f"~{grid_peak:.2f} GiB); a "
+          f"{len(BIG_SUB)}-seed sub-grid bit-equal to its own one-shot "
+          f"sweep")
+    del res, sub
+
+    # ---- c. the scan engine chunked --------------------------------------
+    one, w_one, p_one, _ = timed_sweep(*SCAN_RT, backend="scan", **main_kw)
+    ch, w_ch, p_ch, routes = timed_sweep(*SCAN_RT, backend="scan",
+                                         chunk_size=SCAN_CHUNK, **main_kw)
+    check(routes == {"seeds": 0, "noise": 0}, "scan engine launched the "
+          "closed-loop kernel")
+    for k in ("progress_mean", "power_mean", "progress_hist", "pcap_hist"):
+        check(np.array_equal(one.summary[k], ch.summary[k]),
+              f"scan engine chunked {k} != one-shot")
+    check(np.array_equal(one.energy, ch.energy), "scan chunked energy")
+    n_scan = int(np.prod(one.energy.shape))
+    print(f"[runtime] c. scan engine, {n_scan} runs x 2048: one-shot "
+          f"{w_one:.2f} s (peak {p_one:.3f} GiB), {n_scan // SCAN_CHUNK} "
+          f"chunks of {SCAN_CHUNK} {w_ch:.2f} s (peak {p_ch:.3f} GiB; every "
+          f"chunk runs every step, so the wall is ~{n_scan // SCAN_CHUNK}x "
+          f"one pass); bit-equal")
+    del one, ch
+
+    # ---- d. durable campaigns: transients, then a killed child ----------
+    flaky_dir = ROOT / "build" / "campaign_flaky"
+    kill_dir = ROOT / "build" / "campaign_kill"
+    for d in (flaky_dir, kill_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    orig_core, made = sim._kernel_core, []
+
+    def flaky_core(collect):
+        made.append(supervisor.FlakyGridFn(orig_core(collect), failures={
+            1: supervisor.TransientFault("injected"),
+            4: torch.OutOfMemoryError("CUDA out of memory (injected)")}))
+        return made[-1]
+
+    sim._kernel_core = flaky_core
+    try:
+        res, wall_d, peak_d, routes = timed_sweep(
+            *main_grid, chunk_size=RT_CHUNK, durable=flaky_dir,
+            campaign=supervisor.CampaignConfig(retry=RetryPolicy(
+                max_retries=3, base_s=0.001, max_s=0.01)), **main_kw)
+    finally:
+        sim._kernel_core = orig_core
+    recs, _ = supervisor.read_journal(flaky_dir / supervisor.JOURNAL_NAME)
+    kinds = [r["k"] for r in recs]
+    check(kinds.count("retry") == 2 and kinds.count("commit") == RT_LAUNCHES
+          and "dead" not in kinds, f"durable campaign journal {kinds}")
+    check(made[0].calls == RT_LAUNCHES + 2 and routes["seeds"]
+          == RT_LAUNCHES, f"durable campaign calls {made[0].calls}, "
+          f"launches {routes}")
+    _same_runs(res, main_out, main_summary, "durable campaign")
+    del res
+    code = (f"import sys\nsys.path.insert(0, {str(ROOT / 'src')!r})\n"
+            "from repro_torch.core import sim\n"
+            "from repro_torch.core.supervisor import CampaignConfig\n"
+            f"sim.sweep({tuple(main_grid[0])!r}, {list(main_grid[1])!r}, "
+            f"range({len(main_grid[2])}), chunk_size={RT_CHUNK}, "
+            f"durable={str(kill_dir)!r}, campaign=CampaignConfig("
+            f"checkpoint_every=2, kill_after_commits={KILL_AFTER}), "
+            f"**{main_kw!r})\nprint('SURVIVED_KILL')\n")
+    t0 = time.perf_counter()
+    # a fresh interpreter (fork + exec), never a fork of this process,
+    # which holds a CUDA context
+    child = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=600)
+    w_child = time.perf_counter() - t0
+    check(child.returncode == -9, f"campaign child exit {child.returncode}:"
+          f" {child.stdout[-500:]} {child.stderr[-2000:]}")
+    recs, torn = supervisor.read_journal(kill_dir / supervisor.JOURNAL_NAME)
+    commits = sum(r["k"] == "commit" for r in recs)
+    check(commits == KILL_AFTER, f"killed child committed {commits}")
+    K.ROUTE_LAUNCHES.update(seeds=0, noise=0)
+    t0 = time.perf_counter()
+    res = supervisor.resume_campaign(kill_dir)
+    w_resume = time.perf_counter() - t0
+    resumed = K.ROUTE_LAUNCHES["seeds"]
+    # the checkpoint holds the commits up to the last even one
+    # (checkpoint_every=2): the rest run again
+    check(resumed == RT_LAUNCHES - KILL_AFTER // 2 * 2,
+          f"resume launched {resumed} chunks")
+    _same_runs(res, main_out, main_summary, "resumed campaign")
+    del res
+    print(f"[runtime] d. durable main grid in chunks of {RT_CHUNK} under "
+          f"FlakyGridFn transients (one injected fault, one CUDA "
+          f"out-of-memory): {wall_d:.3f} s wall against {wall_a:.3f} s for "
+          f"plain run_grid on the same chunks (a), 2 retries, "
+          f"{RT_LAUNCHES} commits, peak {peak_d:.3f} GiB; a spawned child "
+          f"SIGKILLed after {KILL_AFTER} commits ({w_child:.1f} s, start-up "
+          f"included), resume_campaign finished it in {w_resume:.3f} s "
+          f"({resumed} launches: the {RT_LAUNCHES - KILL_AFTER} uncommitted "
+          f"chunks and the commit newer than the last checkpoint); both "
+          f"bit-equal to phase 3")
+
+    # ---- e. the NRM: run_simulated, resumed segments, control_step ------
+    runs, walls = [], []
+    for eps in (0.0, 0.1):
+        for seed in NRM_SEEDS:
+            nrm = NRM(PowerControlConfig(epsilon=eps, plant_profile="gros"))
+            t0 = time.perf_counter()
+            tr = nrm.run_simulated(total_work=NRM_WORK, max_time=NRM_MT,
+                                   seed=seed)
+            walls.append(time.perf_counter() - t0)
+            check(tr["work"][-1] >= NRM_WORK and np.isfinite(
+                tr["power"]).all(), f"run_simulated eps {eps} seed {seed}")
+            runs.append(summarize_run(eps, 1.0, tr["progress"],
+                                      tr["power"]))
+    table = tradeoff_table(runs)
+    saving, slower = (table[0.1]["energy_saving"],
+                      table[0.1]["time_increase"])
+    check(0.05 < saving < 0.45, f"NRM energy saving {saving}")
+    check(slower < 0.30, f"NRM time increase {slower}")
+    nrm = NRM(PowerControlConfig(epsilon=0.1, plant_profile="gros"))
+    seg = []
+    for _ in range(3):
+        tr = nrm.run_simulated(total_work=1e9, max_time=NRM_MT, seed=0)
+        seg.append((float(tr["work"][0]), float(tr["work"][-1])))
+    check(seg[0][1] < seg[1][0] < seg[1][1] < seg[2][0] < seg[2][1],
+          f"resumed segments' work {seg}")
+    ctrl = {}
+    for where in ("cuda", "cpu"):
+        nrm = NRM(PowerControlConfig(epsilon=0.1, plant_profile="gros"),
+                  device=dev if where == "cuda" else "cpu")
+        step_s, period_s = [], []
+        for k in range(CTRL_PERIODS):
+            t0 = time.perf_counter()
+            meas = nrm.actuator.advance(1.0)
+            n = max(1, int(meas["progress"]))
+            nrm.hb.beat_many(k + (np.arange(n) + 0.5) / n)
+            t1 = time.perf_counter()
+            rec = nrm.control_step()
+            t2 = time.perf_counter()
+            check(np.isfinite(rec.pcap) and nrm.profile.pcap_min
+                  <= nrm.actuator._pcap <= nrm.profile.pcap_max,
+                  f"control_step on {where} period {k}: {rec}")
+            step_s.append(t2 - t1)
+            period_s.append(t2 - t0)
+        ctrl[where] = (1e3 * np.median(step_s), 1e3 * np.median(period_s),
+                       rec.progress / float(nrm.gains.setpoint))
+    print(f"[runtime] e. NRM.run_simulated on gros, {len(NRM_SEEDS)} seeds "
+          f"at eps 0.0 and 0.1 (max_time {NRM_MT:.0f} s: a 256-step bucket):"
+          f" energy saving {saving:.4f}, time increase {slower:.4f}; wall "
+          f"per call median {np.median(walls):.3f} s (first {walls[0]:.3f} "
+          f"s); 3 resumed segments, work "
+          + " -> ".join(f"{a:.0f}..{b:.0f}" for a, b in seg)
+          + f"; {CTRL_PERIODS} control periods on SimulatedPowerActuator: "
+          f"control_step median {ctrl['cuda'][0]:.3f} ms on the card, "
+          f"{ctrl['cpu'][0]:.3f} ms on the CPU (whole period with the "
+          f"plant's advance and the beats: {ctrl['cuda'][1]:.3f} / "
+          f"{ctrl['cpu'][1]:.3f} ms); last progress / setpoint "
+          f"{ctrl['cuda'][2]:.3f} (card), {ctrl['cpu'][2]:.3f} (CPU)")
+
+    # ---- f. serve --power on qwen3-8b at full width ----------------------
+    FK.LAUNCHES, DK.LAUNCHES = 0, 0
+    t0 = time.perf_counter()
+    res = serve.main(SERVE_ARGV + ["--power"])
+    wall_f = time.perf_counter() - t0
+    L, GEN, B = 36, 32, 8
+    check(FK.LAUNCHES == L and DK.LAUNCHES == L * GEN,
+          f"serve --power launches flash {FK.LAUNCHES}, decode "
+          f"{DK.LAUNCHES}")
+    # the same call without --power, right after: the decode wall moves
+    # between calls (43-244 ms a step across runs)
+    again = serve.main(SERVE_ARGV)
+    check(np.array_equal(res["generated"], serve7["generated"]),
+          "serve --power tokens differ from phase 7's")
+    check(np.array_equal(again["generated"], serve7["generated"]),
+          "serve tokens moved between calls")
+    check(res["final_pcap"] is not None and res["energy_j"] > 0,
+          f"serve --power accounting {res}")
+    tps = lambda r: GEN * B / r["wall_s"]
+    print(f"[runtime] f. serve --power, qwen3-8b full width, batch {B}, "
+          f"prompt 1024, {GEN} tokens: main() {wall_f:.1f} s; tokens equal "
+          f"phase 7's; decode loop {res['wall_s']} s ({tps(res):.1f} tok/s)"
+          f", without --power right after {again['wall_s']} s "
+          f"({tps(again):.1f} tok/s), phase 7 {serve7['wall_s']} s "
+          f"({tps(serve7):.1f} tok/s); the NRM's own host time "
+          f"{res['nrm_wall_s']} s, {1e3 * res['nrm_wall_s'] / (GEN - 1):.2f}"
+          f" ms a step; simulated time {res['sim_time_s']} s, energy "
+          f"{res['energy_j']} J, final cap {res['final_pcap']} W; launches "
+          f"flash {L}, decode {L * GEN}")
+    for d in (flaky_dir, kill_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"[runtime] phase 14 in {time.perf_counter() - started:.1f} s; "
+          f"on {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2476,6 +2805,7 @@ def main() -> int:
     attn_err = attention_parity(dev)                      # phase 6
     serving = serving_path(dev)                           # phase 7
     attn_rows = attention_timings(dev, serving, attn_err)  # phase 8
+    serve7 = serving[3]
     del serving  # qwen3-8b's weights: free them before jamba's
     torch.cuda.empty_cache()
     scan_err = scan_parity(dev, scan_lib)                 # phase 9
@@ -2485,6 +2815,8 @@ def main() -> int:
     policies_phase(dev, main_grid, main_kw, main_out, main_summary,
                    smi)                                   # phase 12
     scenarios_phase(dev, main_grid, main_kw, smi)         # phase 13
+    runtime_phase(dev, main_grid, main_kw, main_out, main_summary, serve7,
+                  smi)                                    # phase 14
 
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f}"
           f" s, the kernels' build included")

@@ -18,15 +18,18 @@ command to the feasible image of [pcap_min, pcap_max] provides anti-windup.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.plant import PlantProfile
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32)
+def _f32(x, device=None) -> torch.Tensor:
+    if device is not None and isinstance(x, (int, float)):
+        # filled on the device: a copy from the host would sync
+        return torch.full((), x, dtype=torch.float32, device=device)
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,17 +44,21 @@ class PIGains:
     b: float
     alpha: float
     beta: float
+    # where tensors made from scalar fields live (None: beside the tensor
+    # fields, or the CPU); a runtime on a card sets its device
+    device: Optional[str] = None
 
     @classmethod
     def from_model(cls, profile: PlantProfile, epsilon: float,
-                   tau_obj: float = 10.0) -> "PIGains":
+                   tau_obj: float = 10.0, device=None) -> "PIGains":
         k_p = profile.tau / (profile.K_L * tau_obj)
         k_i = 1.0 / (profile.K_L * tau_obj)
         setpoint = (1.0 - epsilon) * profile.progress_max
         return cls(k_p=k_p, k_i=k_i, setpoint=setpoint,
                    pcap_min=profile.pcap_min, pcap_max=profile.pcap_max,
                    a=profile.a, b=profile.b, alpha=profile.alpha,
-                   beta=profile.beta)
+                   beta=profile.beta,
+                   device=None if device is None else str(device))
 
     def with_gains(self, k_p, k_i) -> "PIGains":
         """Same setpoint/range/transform, new (K_P, K_I)."""
@@ -60,10 +67,12 @@ class PIGains:
     # ---- Eq. 2 and inverse ------------------------------------------------
     def linearize(self, pcap):
         return -torch.exp(_f32(-self.alpha
-                               * (self.a * pcap + self.b - self.beta)))
+                               * (self.a * pcap + self.b - self.beta),
+                               self.device))
 
     def delinearize(self, pcap_l):
-        pcap_l = torch.clamp(_f32(pcap_l), self.linearize(self.pcap_min),
+        pcap_l = torch.clamp(_f32(pcap_l, self.device),
+                             self.linearize(self.pcap_min),
                              self.linearize(self.pcap_max))
         power = self.beta - torch.log(-pcap_l) / self.alpha
         return (power - self.b) / self.a
@@ -76,7 +85,7 @@ class PIState(NamedTuple):
 
 def pi_init(gains: PIGains, pcap0: float | None = None) -> PIState:
     pcap0 = gains.pcap_max if pcap0 is None else pcap0
-    return PIState(prev_error=_f32(0.0),
+    return PIState(prev_error=_f32(0.0, gains.device),
                    prev_pcap_l=_f32(gains.linearize(pcap0)))
 
 
@@ -92,7 +101,8 @@ def pi_step(gains: PIGains, state: PIState, progress, dt
     hi = gains.linearize(gains.pcap_max)
     pcap_l = torch.clamp(pcap_l, lo, hi)
     pcap = gains.delinearize(pcap_l)
-    return PIState(prev_error=_f32(error), prev_pcap_l=_f32(pcap_l)), pcap
+    return PIState(prev_error=_f32(error, gains.device),
+                   prev_pcap_l=_f32(pcap_l)), pcap
 
 
 class PIController:

@@ -104,7 +104,8 @@ def plane_step(gains: PIGains, policy, policy_vals, state, pcap_applied,
                                          for i in range(4))
     gs = guard_state
     g_s = lambda i: gs[..., i]
-    pg = torch.as_tensor(progress, dtype=torch.float32)
+    # scalar readings (the NRM's) land on the gains' device
+    pg = torch.as_tensor(progress, dtype=torch.float32, device=gains.device)
     g_on = (torch.ones_like(pg, dtype=torch.bool) if guard_on is None
             else guard_on > 0.5)
     # signal sentinels: non-finite, non-positive or wildly out-of-range
@@ -118,7 +119,8 @@ def plane_step(gains: PIGains, policy, policy_vals, state, pcap_applied,
     if power is None:
         pw = pw_ok = pw_eff = None
     else:
-        pw = torch.as_tensor(power, dtype=torch.float32)
+        pw = torch.as_tensor(power, dtype=torch.float32,
+                             device=gains.device)
         w_hi = mult * (gains.a * gains.pcap_max + gains.b)
         pw_ok = torch.isfinite(pw) & (pw >= 0.0) & (pw <= w_hi)
         last_pw = g_s(flt.G_LAST_POWER)

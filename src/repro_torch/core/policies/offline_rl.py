@@ -10,7 +10,10 @@ Pipeline:
    The state is setpoint-relative progress s = progress/setpoint; the
    action is the normalized cap u = (pcap-min)/(max-min); the reward
    trades normalized power against performance debt:
-   r = -power_norm - rho*max(0, 1 - s').
+   r = -power_norm - rho*max(0, 1 - s'). ``harvest_dataset`` harvests
+   the same rows from a (profiles x epsilons x seeds) grid chunk by
+   chunk through the executor, in bounded memory (and durably with
+   ``durable=dir``).
 2. ``fit_offline_rl(dataset)`` — fitted Q-iteration on the quadratic
    feature map phi(s,u) = [1, s, s^2, u, u^2, s*u], on the device: each
    sweep solves the ridge-regularized least squares to the Bellman
@@ -26,6 +29,8 @@ policy itself is memoryless).
 from __future__ import annotations
 
 import dataclasses
+import os
+from pathlib import Path
 from typing import Dict, Tuple, Union
 
 import numpy as np
@@ -152,13 +157,100 @@ def build_dataset(traces: Dict[str, np.ndarray], profile: PlantProfile,
         profile.pcap_min, profile.pcap_max - profile.pcap_min, rho)
 
 
-def harvest_dataset(*args, **kwargs):
-    """The reference's bounded-memory harvest streams a full-trace sweep
-    through the chunked executor, which the port does not have yet."""
-    raise NotImplementedError(
-        "harvest_dataset is not ported yet: ROADMAP Queue 1 item 7 "
-        "(execution and runtime: the chunked executor); build_dataset on "
-        "a sweep's traces harvests the same transitions")
+def harvest_dataset(profiles, epsilons, seeds, *, total_work: float,
+                    max_time: float = 3600.0, dt: float = 1.0,
+                    tau_obj: float = 10.0, rho: float = 3.0,
+                    chunk_size: int = 1024, devices=None,
+                    backend: str = "auto", durable=None, campaign=None,
+                    device: Union[None, str, torch.device] = None
+                    ) -> Dict[str, np.ndarray]:
+    """Bounded-memory transition harvest over a (profiles x epsilons x
+    seeds) PI grid: the full-trace sweep streams through the chunked
+    executor (`sweep(consume=...)`) and each chunk is converted to
+    (s, a, r, s') rows on the fly, so only O(chunk * T) trace memory ever
+    exists. Row order and values equal concatenating `build_dataset`
+    over per-(profile, epsilon) one-shot sweeps. Runs on CUDA unless
+    ``device="cpu"``.
+
+    ``durable=dir`` makes the harvest crash-safe end to end: each chunk's
+    transitions are spooled atomically to ``dir/parts/part_<lo>.npz``
+    BEFORE the supervisor journal-commits the chunk, so
+    `supervisor.resume_campaign(dir)` recomputes only the uncommitted
+    chunks and reassembles the full dataset from disk."""
+    from repro_torch.core import sim  # late: policies must not import sim
+
+    profs = [sim._resolve(p) for p in
+             ([profiles] if isinstance(profiles, (str, PlantProfile))
+              else profiles)]
+    eps = [float(e) for e in epsilons]
+    E, S = len(eps), len(seeds)
+    setp = np.asarray([[(1.0 - e) * p.progress_max for e in eps]
+                       for p in profs], np.float32)
+    p_lo = np.asarray([p.power_of_pcap(p.pcap_min) for p in profs],
+                      np.float32)
+    p_hi = np.asarray([p.power_of_pcap(p.pcap_max) for p in profs],
+                      np.float32)
+    cap_lo = np.asarray([p.pcap_min for p in profs], np.float32)
+    cap_rng = np.asarray([p.pcap_max - p.pcap_min for p in profs],
+                         np.float32)
+
+    def _chunk_transitions(lo, hi, traces):
+        idx = np.arange(lo, hi)
+        ip, ie = idx // (E * S), (idx // S) % E
+        return transitions_from_traces(
+            traces["progress"], traces["pcap"], traces["power"],
+            traces["valid"], setp[ip, ie], p_lo[ip], p_hi[ip],
+            cap_lo[ip], cap_rng[ip], rho)
+
+    keys = ("s", "a", "r", "s2")
+    kw = dict(total_work=total_work, max_time=max_time, dt=dt,
+              tau_obj=tau_obj, collect_traces=True, backend=backend,
+              chunk_size=chunk_size, devices=devices, device=device)
+    if durable is not None:
+        from repro_torch.core import supervisor
+        supervisor.save_campaign_spec(durable, "harvest_dataset", dict(
+            profiles=profiles, epsilons=eps, seeds=list(seeds),
+            total_work=total_work, max_time=max_time, dt=dt,
+            tau_obj=tau_obj, rho=rho, chunk_size=chunk_size,
+            devices=devices, backend=backend, campaign=campaign,
+            device=device))
+        part_dir = Path(durable) / "parts"
+        part_dir.mkdir(parents=True, exist_ok=True)
+
+        def consume(lo, hi, out):
+            d = _chunk_transitions(lo, hi, out[0])
+            # atomic spool BEFORE the journal commit: a committed chunk
+            # always has its part on disk; a replayed chunk rewrites the
+            # identical bytes
+            p = part_dir / f"part_{lo:010d}.npz"
+            tmp = p.with_name(p.name + ".tmp")
+            with open(tmp, "wb") as fh:
+                np.savez(fh, **d)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, p)
+
+        sim.sweep(profs, eps, seeds, consume=consume, durable=durable,
+                  campaign=campaign, **kw)
+        out: Dict[str, list] = {k: [] for k in keys}
+        for p in sorted(part_dir.glob("part_*.npz")):
+            with np.load(p) as z:
+                for k in keys:
+                    out[k].append(z[k])
+        return {k: np.concatenate(v) if v
+                else np.zeros((0,), np.float32)
+                for k, v in out.items()}
+
+    parts: Dict[str, list] = {k: [] for k in keys}
+
+    def consume(lo, hi, out):
+        d = _chunk_transitions(lo, hi, out[0])
+        for k in parts:
+            parts[k].append(d[k])
+
+    sim.sweep(profs, eps, seeds, consume=consume, **kw)
+    return {k: np.concatenate(v) if v else np.zeros((0,), np.float32)
+            for k, v in parts.items()}
 
 
 # ---- fitted Q-iteration (on the device) ------------------------------------

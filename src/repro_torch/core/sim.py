@@ -54,8 +54,18 @@ progress/power moments, progress and cap histograms), which is what
 makes 100k-run grids fit; `hist_quantile` turns the histograms into
 median/p95-style statistics.
 
-What the reference offers beyond these paths (resuming a run, chunked
-and multi-device execution, the fleet's cap limit) raises
+Execution (`repro_torch.core.executor`): both engines are flat-grid
+functions over per-run rows, and every grid runs through
+`executor.run_grid`: one chunk by default, ``chunk_size=`` bounded
+chunks, ``devices=`` shards, ``consume=`` a per-chunk callback,
+`sweep_resumable` ``state=`` / ``stop_after=``, and ``durable=dir`` the
+campaign supervisor (`repro_torch.core.supervisor`). Each run depends
+only on its own row, so every layout equals one-shot bit for bit.
+`resume_init` + ``simulate_closed_loop(init=)`` continue a run from
+existing plant, controller and scenario state on the scan engine (the
+NRM's delegation path, `repro_torch.core.nrm`).
+
+The fleet's cap limit (``engine_step(cap_limit=)``) raises
 NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -67,13 +77,17 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import executor
 from repro_torch.core import faults as flt
 from repro_torch.core import poisson
 from repro_torch.core import policies as pol
-from repro_torch.core.adaptive import RLSConfig, RLSState, rls_unpack
+from repro_torch.core import supervisor
+from repro_torch.core.adaptive import (RLSConfig, RLSState, rls_init,
+                                       rls_pack, rls_unpack)
 from repro_torch.core.controller import PIGains, PIState, pi_init, pi_step
 from repro_torch.core.plane import gains_values, plane_step, unpack_gains
-from repro_torch.core.policies.pi import PI_RLS_HI, PI_RLS_LO, PIPolicy
+from repro_torch.core.policies.pi import (PI_RLS_HI, PI_RLS_LO, PIPolicy,
+                                         pi_pack)
 from repro_torch.core.plant import (PROFILE_FIELDS, PROFILES, PlantProfile,
                                     PlantState, pcap_linearize, plant_init,
                                     plant_step, simulate)
@@ -93,13 +107,7 @@ from repro_torch.obs import events as evt
 
 # ROADMAP items that bring what this path does not cover yet.
 _TODO = {
-    "chunk_size": "Queue 1 item 7 (execution and runtime)",
-    "devices": "Queue 1 item 7 (execution and runtime)",
-    "durable": "Queue 1 item 7 (execution and runtime)",
-    "campaign": "Queue 1 item 7 (execution and runtime)",
-    "consume": "Queue 1 item 7 (execution and runtime)",
-    "init": "Queue 1 item 7 (execution and runtime: resume_init)",
-    "cap_limit": "Queue 1 item 7 (execution and runtime: the fleet)",
+    "cap_limit": "Queue 1 item 7b (the fleet)",
 }
 
 
@@ -267,20 +275,26 @@ class SweepResult:
         return (x * m).sum(-1) / np.maximum(m.sum(-1), 1)
 
 
-def _run_rows(prof, gains, seeds, *, total_work, max_time, dt,
-              summary_warmup, collect_traces, device):
-    """Flat batch of runs -> (traces (N, T) | None, final) as numpy."""
-    dev = resolve_device(device)
-    traces, final = ops.closed_loop_sim(
-        prof.to(dev), gains.to(dev), seeds.to(dev),
-        total_work=float(total_work),
-        max_time=float(max_time), dt=float(dt),
-        summary_from=float(summary_warmup), collect=collect_traces)
-    final = {k: v.cpu().numpy() for k, v in final.items()}
-    if traces is not None:
-        traces = {k: v.T.cpu().numpy() for k, v in traces.items()}
-        traces["valid"] = traces["valid"] > 0.5
-    return traces, final
+def _kernel_core(collect: bool):
+    """The fused closed-loop op as a flat-grid engine for the executor:
+    (rows {"prof" (B, 14), "gains" (B, 9), "seeds" (B,)}, total_work,
+    max_time, dt, summary_from) -> (traces (B, T) per key | None, the
+    kernel's final dict), tensors on the rows' device. It is the
+    reference's ``backend="pallas"`` arm: every run's noise is
+    `ops.draw_noise` of its own seed, so any slice of a grid computes the
+    one-shot rows."""
+
+    def flat(b, total_work, max_time, dt, summary_from):
+        traces, final = ops.closed_loop_sim(
+            b["prof"], b["gains"], b["seeds"], total_work=float(total_work),
+            max_time=float(max_time), dt=float(dt),
+            summary_from=float(summary_from), collect=collect)
+        if traces is not None:
+            traces = {k: v.T for k, v in traces.items()}
+            traces["valid"] = traces["valid"] > 0.5
+        return traces, final
+
+    return flat
 
 
 # ---- the scan engine (the reference's backend="scan") -------------------
@@ -706,16 +720,17 @@ def _scan_core(max_steps: int, collect: bool = True, branches=("pi",),
                typed_pi: bool = True, n_events: int = 0):
     """Closed-loop runs over a batch: (profile_vals (B, 14), gains_vals
     (B, 9), seeds (B,) int64, total_work, max_time, dt, summary_from[,
-    policy_vals (B, POLICY_PARAM_DIM)], *, sched, det_vals, fvals, gvals)
-    -> (traces (T, B) per key | None, final carry), all on the rows'
-    device. ``typed_pi`` runs the typed fixed-gain PI path; otherwise the
-    packed policy state of the branch set ``branches``, each run's
-    hyperparameters and kind in its ``policy_vals`` row (zeros when
-    None), and the set's trace extras. The scenario inputs are per-run
-    rows (`ScheduleValues` (B, rows, ...), detector values (B,
-    DET_PARAM_DIM), `FaultValues` (B, MAX_FAULT_ROWS)) and the grid-wide
-    guard vector, each None when off; ``n_events`` > 0 carries a ring of
-    that many slots per run.
+    policy_vals (B, POLICY_PARAM_DIM)], *, sched, det_vals, fvals, gvals,
+    init) -> (traces (T, B) per key | None, final carry), all on the rows'
+    device. ``init`` (a (B,)-row `_Carry`, from `resume_init`) replaces
+    the fresh carry; it must hold a packed policy state. ``typed_pi``
+    runs the typed fixed-gain PI path; otherwise the packed policy state
+    of the branch set ``branches``, each run's hyperparameters and kind
+    in its ``policy_vals`` row (zeros when None), and the set's trace
+    extras. The scenario inputs are per-run rows (`ScheduleValues` (B,
+    rows, ...), detector values (B, DET_PARAM_DIM), `FaultValues` (B,
+    MAX_FAULT_ROWS)) and the grid-wide guard vector, each None when off;
+    ``n_events`` > 0 carries a ring of that many slots per run.
 
     Each run's plant noise is `ops.draw_noise` of its seed (channels 0-3,
     drawn `ops.CHUNK_T` steps at a time), its heartbeat counts come from
@@ -726,7 +741,7 @@ def _scan_core(max_steps: int, collect: bool = True, branches=("pi",),
 
     def run(profile_vals, gains_vals, seeds, total_work, max_time, dt,
             summary_from, policy_vals=None, *, sched=None, det_vals=None,
-            fvals=None, gvals=None):
+            fvals=None, gvals=None, init=None):
         dev = profile_vals.device
         # filled on the device: a copy from the host would sync
         sc = lambda x: torch.full((), float(x), dtype=torch.float32,
@@ -743,8 +758,9 @@ def _scan_core(max_steps: int, collect: bool = True, branches=("pi",),
                                         pol.POLICY_PARAM_DIM), device=dev)
                            if policy_vals is None else policy_vals.to(
                                device=dev, dtype=torch.float32))
-        c = _default_init(profile, gains, branches, policy_vals, typed_pi,
-                          sched, det_vals, fvals, gvals, n_events)
+        c = (_default_init(profile, gains, branches, policy_vals, typed_pi,
+                           sched, det_vals, fvals, gvals, n_events)
+             if init is None else init)
         fault_keys = (None if fvals is None
                       else ops.seed_keys(seeds, FAULT_WORD))
         traces = None
@@ -779,13 +795,13 @@ _SCENARIO_STATE = (("det", "detector_state"), ("fstate", "fault_state"),
                    ("guard", "guard_state"), ("events", "event_state"))
 
 
-def _final_dict(c: _Carry) -> Dict[str, np.ndarray]:
+def _final_tensors(c: _Carry) -> Dict[str, torch.Tensor]:
     """An engine carry as the kernel route's final dict (`ref.init_state`
-    keys; flags and step counts as float32), numpy, so both backends
-    share one result assembly; a packed policy state also comes back
-    whole, as ``policy_state``, and each scenario state under its result
-    name (``detector_state``, ``fault_state``, ``guard_state``,
-    ``event_state``)."""
+    keys; flags and step counts as float32), on the carry's device, so
+    both backends share one result assembly; a packed policy state also
+    comes back whole, as ``policy_state``, and each scenario state under
+    its result name (``detector_state``, ``fault_state``,
+    ``guard_state``, ``event_state``)."""
     packed = not isinstance(c.pol, PIState)
     pi = PIState(c.pol[..., 0], c.pol[..., 1]) if packed else c.pol
     f = {"progress_l": c.plant.progress_l, "dropped": c.plant.dropped,
@@ -799,30 +815,59 @@ def _final_dict(c: _Carry) -> Dict[str, np.ndarray]:
     for field, name in _SCENARIO_STATE:
         if getattr(c, field) is not None:
             f[name] = getattr(c, field)
-    return {k: v.to(torch.float32).cpu().numpy() for k, v in f.items()}
+    return {k: v.to(torch.float32) for k, v in f.items()}
 
 
-def _scan_rows(prof, gains, seeds, *, total_work, max_time, dt,
-               summary_warmup, collect_traces, device, policy_vals=None,
-               branches=("pi",), scenario=None):
-    """Flat batch of runs through the scan engine -> (traces (N, T) |
-    None, final) as numpy, T = `_bucket_steps(ceil(max_time / dt))`: the
-    typed PI path, or with (N, POLICY_PARAM_DIM) ``policy_vals`` rows the
-    packed path of ``branches``. ``scenario`` is a `_Scenario` of per-run
-    rows (or None)."""
-    dev = resolve_device(device)
-    max_steps = _bucket_steps(int(np.ceil(max_time / dt)))
-    typed = policy_vals is None
-    if not typed:
-        policy_vals = policy_vals.to(dev)
-    sc = scenario or _Scenario()
-    traces, c = _scan_core(max_steps, collect_traces, tuple(branches),
-                           typed, sc.n_events)(
-        prof.to(dev), gains.to(dev), seeds.to(dev), total_work, max_time,
-        dt, summary_warmup, policy_vals, **sc.inputs(dev))
-    if traces is not None:
-        traces = {k: v.T.cpu().numpy() for k, v in traces.items()}
-    return traces, _final_dict(c)
+def _scan_flat(max_steps: int, collect: bool, branches=("pi",),
+               typed_pi: bool = True, n_events: int = 0):
+    """The scan engine as a flat-grid engine for the executor: (rows
+    {"prof", "gains", "seeds"[, "pvals", "sched", "det", "faults",
+    "init"]}, total_work, max_time, dt, summary_from[, guard vector]) ->
+    (traces (B, T) per key | None, final dict), tensors on the rows'
+    device. Each run depends only on its own row (`_scan_core`), so any
+    slice of a grid computes the one-shot rows."""
+    run = _scan_core(max_steps, collect, tuple(branches), typed_pi,
+                     n_events)
+
+    def flat(b, total_work, max_time, dt, summary_from, gvals=None):
+        traces, c = run(b["prof"], b["gains"], b["seeds"], total_work,
+                        max_time, dt, summary_from, b.get("pvals"),
+                        sched=b.get("sched"), det_vals=b.get("det"),
+                        fvals=b.get("faults"), gvals=gvals,
+                        init=b.get("init"))
+        if traces is not None:
+            traces = {k: v.T for k, v in traces.items()}
+        return traces, _final_tensors(c)
+
+    return flat
+
+
+def _execute(fn, batched, shared, n_runs: int, *, device, chunk_size=None,
+             devices=None, consume=None, state=None, stop_after=None,
+             durable=None, campaign=None):
+    """A flat grid through `executor.run_grid`, or the campaign supervisor
+    with ``durable=`` -> (merged (traces, final) numpy | None,
+    ExecState)."""
+    if durable is not None:
+        merged, report = supervisor.run_durable(
+            fn, batched, shared, n_runs, dir=durable,
+            chunk_size=chunk_size, devices=devices, device=device,
+            consume=consume, config=campaign)
+        return merged, report.state
+    return executor.run_grid(fn, batched, shared, n_runs,
+                             chunk_size=chunk_size, devices=devices,
+                             device=device, consume=consume, state=state,
+                             stop_after=stop_after)
+
+
+def _scan_batch(scen: "_Scenario", batched: dict) -> tuple:
+    """Add a batch's per-run scenario rows to its executor rows; the
+    shared tail: the grid-wide guard vector, when armed."""
+    for name, v in (("sched", scen.sched), ("det", scen.det),
+                    ("faults", scen.faults)):
+        if v is not None:
+            batched[name] = v
+    return () if scen.guard is None else (scen.guard,)
 
 
 class _Scenario(NamedTuple):
@@ -871,11 +916,132 @@ def _guard_vector(guard) -> Optional[torch.Tensor]:
     return flt.guard_values(None if guard is True else guard, device="cpu")
 
 
-def resume_init(*args, **kwargs):
-    """A carry that resumes a run from existing plant, controller and
-    scenario state: the NRM delegation path, not ported yet."""
-    raise NotImplementedError(
-        f"resume_init is not ported yet: ROADMAP {_TODO['init']}")
+def _host_f32(x) -> torch.Tensor:
+    """A state leaf (tensor on any device, numpy or float) as a float32
+    CPU tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32))
+
+
+def resume_init(plant: PlantState, pi: PIState, pcap,
+                rls: Optional[RLSState] = None, policy_state=None,
+                det_state=None, t0=0.0, fault_state=None, guard_state=None,
+                event_state=None) -> _Carry:
+    """Carry that resumes a run from existing plant / controller (and
+    optionally RLS estimator) state: the NRM delegation path; the
+    heartbeat window and the per-run summaries start fresh. Pass
+    ``policy_state`` (a packed (POLICY_STATE_DIM,) vector from
+    `SimResult.policy_state`) to resume a non-PI policy; otherwise the
+    PI / RLS states are packed into the PI branch's layout, tagged.
+    ``det_state``, ``fault_state``, ``guard_state`` and ``event_state``
+    (the packed vectors of `SimResult`) resume the detector, the fault
+    script's state, the guard and the flight recorder: the next segment
+    keeps appending to the same ring, so its monotonic total spans the
+    whole resumed run.
+
+    ``t0`` sets the carried sim time the segment starts at. It defaults
+    to 0 (each segment gets its own `max_time` budget: the NRM path),
+    but a workload-scripted run gathers its active phase by this clock:
+    pass the previous segment's `exec_time` so the schedule continues
+    instead of restarting at phase 0 (`max_time` is then measured on the
+    same absolute clock).
+
+    Leaves of any device or numpy come back as CPU tensors of the
+    engine's dtypes; ``simulate_closed_loop(init=)`` moves the carry to
+    the device it runs on."""
+    if policy_state is None:
+        vec = pi_pack(PIState(_host_f32(pi.prev_error),
+                              _host_f32(pi.prev_pcap_l)),
+                      None if rls is None else rls_pack(
+                          RLSState(*(_host_f32(x) for x in rls))))
+        vec[pol.BRANCH_TAG_SLOT] = float(pol.branch_tag(
+            "pi_rls" if rls is not None else "pi"))
+    else:
+        vec = _host_f32(policy_state).clone()
+    z = torch.zeros((), dtype=torch.float32)
+    f = torch.zeros((), dtype=torch.bool)
+    opt = lambda x: None if x is None else _host_f32(x).clone()
+    return _Carry(plant=PlantState(
+                      progress_l=_host_f32(plant.progress_l),
+                      dropped=_host_f32(plant.dropped) > 0.5,
+                      energy=_host_f32(plant.energy),
+                      work=_host_f32(plant.work)),
+                  pol=vec, pcap=_host_f32(pcap), anchor_gap=z,
+                  has_anchor=f, t=_host_f32(t0),
+                  steps=torch.zeros((), dtype=torch.int32), done=f,
+                  summ=_Summary(count=z, progress_sum=z, progress_sq_sum=z,
+                                power_sum=z,
+                                progress_hist=torch.zeros(PROG_BINS),
+                                pcap_hist=torch.zeros(CAP_BINS)),
+                  det=opt(det_state), fstate=opt(fault_state),
+                  guard=opt(guard_state), events=opt(event_state))
+
+
+def _resume_fixups(init: _Carry, branch: str, pvals: torch.Tensor,
+                   gains: PIGains, profile: PlantProfile, dv, fv, gvl,
+                   n_events: int) -> _Carry:
+    """The reference's host-side checks of a resume carry against the run
+    it starts: the policy branch must match (fixed-gain PI state upgrades
+    to adaptive PI with a fresh estimator), and each scenario input must
+    come with its state (a fresh one is made for an input the carry
+    predates; a state without its input raises)."""
+    src = pol.tag_branch(int(init.pol[pol.BRANCH_TAG_SLOT]))
+    if src is not None and src != branch and not (
+            src == "pi" and branch == "pi_rls"):
+        # the one allowed upgrade is pi -> pi_rls (fresh estimator
+        # below); anything else would silently misread the slots
+        raise ValueError(
+            f"init policy state was produced by branch '{src}' but this "
+            f"run dispatches '{branch}'; resume with the same policy (pi "
+            "state does upgrade to adaptive pi)")
+    rls_block = init.pol[PI_RLS_LO:PI_RLS_HI]
+    if branch == "pi_rls" and not bool(rls_block.any()):
+        # resume carry predates the estimator: start a fresh one so
+        # adaptive= is honoured rather than silently dropped
+        vec = init.pol.clone()
+        vec[PI_RLS_LO:PI_RLS_HI] = rls_pack(rls_init(pvals[1:7], gains.k_p,
+                                                     gains.k_i))
+        vec[pol.BRANCH_TAG_SLOT] = float(pol.branch_tag("pi_rls"))
+        init = init._replace(pol=vec)
+    elif branch == "pi" and bool(rls_block.any()):
+        raise ValueError("init carries RLS state but adaptive=None; pass "
+                         "the RLSConfig so the estimator's params are "
+                         "given")
+    for name, field, given, fresh in (
+            ("detector", "det", dv,
+             lambda: detect_init(dv[0], gains)),
+            ("faults", "fstate", fv,
+             lambda: flt.fault_state_init(profile, device="cpu")),
+            ("guard", "guard", gvl,
+             lambda: flt.guard_init((), device="cpu"))):
+        if given is not None and getattr(init, field) is None:
+            init = init._replace(**{field: fresh()})
+        elif given is None and getattr(init, field) is not None:
+            raise ValueError(f"init carries {name} state but {name}=None; "
+                             f"pass the {name} so its params are given")
+    if n_events and init.events is None:
+        # resume carry predates the recorder: start an empty ring
+        init = init._replace(events=evt.ring_init(n_events, (), "cpu"))
+    elif not n_events and init.events is not None:
+        raise ValueError("init carries a flight-recorder ring but "
+                         "record_events=None; pass record_events so the "
+                         "ring stays in the carry")
+    elif (init.events is not None
+          and evt.ring_capacity(init.events) != n_events):
+        raise ValueError(
+            f"init ring has {evt.ring_capacity(init.events)} slots but "
+            f"record_events={n_events}; resume with the same ring size")
+    return init
+
+
+def _carry_rows(c):
+    """An unbatched carry (tree of tensors) as a batch of one run."""
+    if c is None:
+        return None
+    if isinstance(c, tuple):
+        return type(c)(*(_carry_rows(x) for x in c))
+    return c[None]
 
 
 def open_loop_runs(profile: Union[str, PlantProfile], steps: int,
@@ -976,8 +1142,13 @@ def simulate_closed_loop(profile: Union[str, PlantProfile],
     a ring size) arms the flight recorder (`SimResult.events`, the
     decoded timeline, and `event_state`, the ring). Faults, guard and
     recorder run the packed ("pi",) engine when no policy is given.
-    Runs on CUDA unless ``device="cpu"``."""
-    _reject(init=init)
+
+    ``init`` (a carry from `resume_init`) continues a previous run from
+    its plant, controller (estimator, policy) and scenario state, on the
+    packed scan engine: the kernel starts every run from a fresh carry.
+    The carry is checked against the run (`_resume_fixups`): the policy
+    branch must match, and a scenario input the carry predates gets a
+    fresh state. Runs on CUDA unless ``device="cpu"``."""
     if policy is not None and adaptive is not None:
         raise ValueError("pass policy= or adaptive=, not both "
                          "(adaptive= is sugar for PIPolicy(adaptive=...))")
@@ -1003,27 +1174,32 @@ def simulate_closed_loop(profile: Union[str, PlantProfile],
                                        for x in faults.pack()))),
         guard=_guard_vector(guard), n_events=n_events)
     given = not (policy is None and adaptive is None and design is None)
-    packed = given or scen.faults is not None or scen.guard is not None \
-        or n_events > 0
+    # a resumed run carries a packed policy state: the packed scan engine
+    packed = given or init is not None or scen.faults is not None \
+        or scen.guard is not None or n_events > 0
     if policy is None:
         policy = PIPolicy(adaptive=adaptive,
                           design=None if design is None
                           else _resolve(design))
     branch = policy.branch
-    rows = dict(total_work=total_work, max_time=max_time, dt=dt,
-                summary_warmup=summary_warmup,
-                collect_traces=collect_traces, device=device)
-    prof_row, gains_row = profile_values(profile)[None], gains_values(
-        gains)[None]
-    seed_row = torch.tensor([seed], dtype=torch.int64)
+    pvals = pol.policy_values(policy, profile, gains)
+    batched = {"prof": profile_values(profile)[None],
+               "gains": gains_values(gains)[None],
+               "seeds": torch.tensor([seed], dtype=torch.int64)}
+    shared = (total_work, max_time, dt, summary_warmup)
     if packed or scen.on:
-        traces, f = _scan_rows(
-            prof_row, gains_row, seed_row,
-            policy_vals=(pol.policy_values(policy, profile, gains)[None]
-                         if packed else None),
-            branches=(branch,), scenario=scen, **rows)
+        if init is not None:
+            batched["init"] = _carry_rows(_resume_fixups(
+                init, branch, pvals, gains, profile, scen.det,
+                scen.faults, scen.guard, n_events))
+        if packed:
+            batched["pvals"] = pvals[None]
+        shared += _scan_batch(scen, batched)
+        fn = _scan_flat(_bucket_steps(int(np.ceil(max_time / dt))),
+                        collect_traces, (branch,), not packed, n_events)
     else:
-        traces, f = _run_rows(prof_row, gains_row, seed_row, **rows)
+        fn = _kernel_core(collect_traces)
+    (traces, f), _ = _execute(fn, batched, shared, 1, device=device)
     f = {k: v[0] for k, v in f.items()}
     n = int(f["steps"])
     trimmed = {} if traces is None else {
@@ -1184,6 +1360,103 @@ def _scenario_rows(build, idx, guard, n_events) -> "_Scenario":
     return _Scenario(guard=guard, n_events=n_events, **rows)
 
 
+def _sweep_impl(profiles, epsilons, seeds, total_work, max_time, dt,
+                tau_obj, adaptive, policies, collect_traces,
+                summary_warmup, workloads, detector, faults, guard,
+                record_events, *, backend, chunk_size, devices, typed_pi,
+                consume, state=None, stop_after=None, durable=None,
+                campaign=None, device=None):
+    """Shared implementation behind `sweep` / `sweep_resumable`: builds
+    the grid as per-run rows in grid-nest order and runs one flat engine
+    over them through the executor (or the campaign supervisor). Returns
+    (SweepResult | None, ExecState)."""
+    _check_backend(backend)
+    single = isinstance(profiles, (str, PlantProfile))
+    profs = [_resolve(p) for p in ([profiles] if single else profiles)]
+    pls, squeeze_pol, given = _policy_axis(adaptive, policies)
+    branches, kinds = pol.resolve_kinds(pls)
+    extra, build, squeeze_w = _scenario_axes(profs, workloads, detector,
+                                             faults)
+    gvl = _guard_vector(guard)
+    n_events = _resolve_n_events(record_events)
+    if typed_pi and branches != ("pi",):
+        raise ValueError("typed_pi= is the single-branch fixed-gain PI "
+                         f"fast path; this grid dispatches {branches}")
+    if typed_pi and ("faults" in build or gvl is not None):
+        raise ValueError("typed_pi= is the guard-free fixed-gain PI "
+                         "fast path; faults=/guard= need the packed "
+                         "engine")
+    if typed_pi and n_events:
+        raise ValueError("typed_pi= is the recorder-free fixed-gain PI "
+                         "fast path; record_events= needs the packed "
+                         "engine")
+    scen_on = bool(build) or gvl is not None or n_events > 0
+    kernel_ok = branches == ("pi",) and not scen_on
+    if backend == "auto":
+        backend = "kernel" if kernel_ok else "scan"
+    elif backend == "kernel" and not kernel_ok:
+        raise ValueError(
+            "backend='kernel' covers the fixed-gain PI path only (static "
+            "plant, no detector, no faults/guard, no flight recorder); "
+            f"this grid needs branches={branches}, workloads="
+            f"{'sched' in build}, detector={'det' in build}, faults="
+            f"{'faults' in build}, guard={gvl is not None}, record_events="
+            f"{n_events > 0} — use backend='scan'")
+    prof, gains, seed_rows, pvals, idx = _grid(profs, epsilons, seeds,
+                                               tau_obj, pls, kinds, extra)
+    batched = {"prof": prof, "gains": gains, "seeds": seed_rows}
+    shared = (total_work, max_time, dt, summary_warmup)
+    if backend == "kernel":
+        fn = _kernel_core(collect_traces)
+    else:
+        packed = (given and not typed_pi) or "faults" in build \
+            or gvl is not None or n_events > 0
+        if packed:
+            batched["pvals"] = pvals
+        shared += _scan_batch(_scenario_rows(build, idx, gvl, n_events),
+                              batched)
+        fn = _scan_flat(_bucket_steps(int(np.ceil(max_time / dt))),
+                        collect_traces, branches, not packed, n_events)
+    merged, exec_state = _execute(
+        fn, batched, shared, int(seed_rows.shape[0]), device=device,
+        chunk_size=chunk_size, devices=devices, consume=consume,
+        state=state, stop_after=stop_after, durable=durable,
+        campaign=campaign)
+    if merged is None:  # a consume hook ran, or stop_after cut short
+        return None, exec_state
+    traces, final = merged
+    shape = (len(profs), len(epsilons), len(pls)) + extra + (len(seeds),)
+    final = {k: v.reshape(shape + v.shape[1:]) for k, v in final.items()}
+    if traces is not None:
+        traces = {k: v.reshape(shape + v.shape[1:])
+                  for k, v in traces.items()}
+    edges = {k: np.stack([_hist_edges(p)[k] for p in profs])
+             for k in ("progress_edges", "pcap_edges")}
+    squeeze = lambda d, axis: None if d is None else {
+        k: v if k.endswith("_edges") else v[(slice(None),) * axis + (0,)]
+        for k, v in d.items()}
+    if squeeze_w:
+        traces, final = squeeze(traces, 3), squeeze(final, 3)
+    if squeeze_pol:
+        traces, final = squeeze(traces, 2), squeeze(final, 2)
+    summary = _summary_dict(final, edges)
+    if single:
+        traces, final = squeeze(traces, 0), squeeze(final, 0)
+        summary = {k: v[0] for k, v in summary.items()}
+    det = final.get("detector_state")
+    return SweepResult(traces=traces,
+                       exec_time=final["t"],
+                       energy=final["energy"],
+                       work=final["work"],
+                       completed=final["work"] >= total_work,
+                       n_steps=final["steps"].astype(np.int32),
+                       summary=summary,
+                       detections=None if det is None
+                       else det[..., DET_N_DETECT],
+                       guard_state=final.get("guard_state"),
+                       events=final.get("event_state")), exec_state
+
+
 def sweep(profiles, epsilons, seeds, total_work, max_time=3600.0,
           dt=1.0, tau_obj=10.0, adaptive=None, policies=None,
           collect_traces=True, summary_warmup=0, workloads=None,
@@ -1192,7 +1465,7 @@ def sweep(profiles, epsilons, seeds, total_work, max_time=3600.0,
           devices=None, typed_pi: bool = False, consume=None,
           durable=None, campaign=None,
           device: Union[None, str, torch.device] = None
-          ) -> SweepResult:
+          ) -> Optional[SweepResult]:
     """Closed-loop grid: profiles x epsilons [x policies] [x workloads]
     [x detectors] [x faults] x seeds, one batch of runs.
 
@@ -1230,84 +1503,65 @@ def sweep(profiles, epsilons, seeds, total_work, max_time=3600.0,
     the typed fixed-gain PI path without ``policies=`` / ``adaptive=``
     (or with ``typed_pi=True``) unless faults, a guard or the recorder
     are on, which need the packed policy state, as in the reference.
-    The reference's execution options (``chunk_size``, ``devices``,
-    ``durable``, ``campaign``, ``consume``) raise NotImplementedError
-    naming the ROADMAP item that brings them."""
-    _reject(chunk_size=chunk_size, devices=devices, consume=consume,
-            durable=durable, campaign=campaign)
-    _check_backend(backend)
-    single = isinstance(profiles, (str, PlantProfile))
-    profs = [_resolve(p) for p in ([profiles] if single else profiles)]
-    pls, squeeze_pol, given = _policy_axis(adaptive, policies)
-    branches, kinds = pol.resolve_kinds(pls)
-    extra, build, squeeze_w = _scenario_axes(profs, workloads, detector,
-                                             faults)
-    gvl = _guard_vector(guard)
-    n_events = _resolve_n_events(record_events)
-    if typed_pi and branches != ("pi",):
-        raise ValueError("typed_pi= is the single-branch fixed-gain PI "
-                         f"fast path; this grid dispatches {branches}")
-    if typed_pi and ("faults" in build or gvl is not None):
-        raise ValueError("typed_pi= is the guard-free fixed-gain PI "
-                         "fast path; faults=/guard= need the packed "
-                         "engine")
-    if typed_pi and n_events:
-        raise ValueError("typed_pi= is the recorder-free fixed-gain PI "
-                         "fast path; record_events= needs the packed "
-                         "engine")
-    scen_on = bool(build) or gvl is not None or n_events > 0
-    kernel_ok = branches == ("pi",) and not scen_on
-    if backend == "auto":
-        backend = "kernel" if kernel_ok else "scan"
-    elif backend == "kernel" and not kernel_ok:
-        raise ValueError(
-            "backend='kernel' covers the fixed-gain PI path only (static "
-            "plant, no detector, no faults/guard, no flight recorder); "
-            f"this grid needs branches={branches}, workloads="
-            f"{'sched' in build}, detector={'det' in build}, faults="
-            f"{'faults' in build}, guard={gvl is not None}, record_events="
-            f"{n_events > 0} — use backend='scan'")
-    prof, gains, seed_rows, pvals, idx = _grid(profs, epsilons, seeds,
-                                               tau_obj, pls, kinds, extra)
-    rows = dict(total_work=total_work, max_time=max_time, dt=dt,
-                summary_warmup=summary_warmup,
-                collect_traces=collect_traces, device=device)
-    if backend == "kernel":
-        traces, final = _run_rows(prof, gains, seed_rows, **rows)
-    else:
-        packed = (given and not typed_pi) or "faults" in build \
-            or gvl is not None or n_events > 0
-        traces, final = _scan_rows(
-            prof, gains, seed_rows, policy_vals=pvals if packed else None,
-            branches=branches,
-            scenario=_scenario_rows(build, idx, gvl, n_events), **rows)
-    shape = (len(profs), len(epsilons), len(pls)) + extra + (len(seeds),)
-    final = {k: v.reshape(shape + v.shape[1:]) for k, v in final.items()}
-    if traces is not None:
-        traces = {k: v.reshape(shape + v.shape[1:])
-                  for k, v in traces.items()}
-    edges = {k: np.stack([_hist_edges(p)[k] for p in profs])
-             for k in ("progress_edges", "pcap_edges")}
-    squeeze = lambda d, axis: None if d is None else {
-        k: v if k.endswith("_edges") else v[(slice(None),) * axis + (0,)]
-        for k, v in d.items()}
-    if squeeze_w:
-        traces, final = squeeze(traces, 3), squeeze(final, 3)
-    if squeeze_pol:
-        traces, final = squeeze(traces, 2), squeeze(final, 2)
-    summary = _summary_dict(final, edges)
-    if single:
-        traces, final = squeeze(traces, 0), squeeze(final, 0)
-        summary = {k: v[0] for k, v in summary.items()}
-    det = final.get("detector_state")
-    return SweepResult(traces=traces,
-                       exec_time=final["t"],
-                       energy=final["energy"],
-                       work=final["work"],
-                       completed=final["work"] >= total_work,
-                       n_steps=final["steps"].astype(np.int32),
-                       summary=summary,
-                       detections=None if det is None
-                       else det[..., DET_N_DETECT],
-                       guard_state=final.get("guard_state"),
-                       events=final.get("event_state"))
+
+    Execution (`repro_torch.core.executor`): the grid is flattened to
+    per-run rows in grid-nest order and one flat engine runs over them,
+    one chunk by default. ``chunk_size=`` cuts it into bounded-memory
+    chunks (the scan engine runs every step of every chunk, so its
+    chunked wall is about the number of chunks times one chunk's);
+    ``devices=`` (an int, ``"all"`` or a device sequence) splits each
+    chunk's rows over devices; ``consume=`` streams each chunk's
+    ``(traces, final)`` numpy results to ``consume(lo, hi, out)`` instead
+    of keeping them, and `sweep` returns None. ``durable=dir`` runs the
+    grid under the campaign supervisor (`repro_torch.core.supervisor`):
+    every chunk is journaled and checkpointed into ``dir``, transient
+    failures retry, and after a crash `supervisor.resume_campaign(dir)`
+    returns the uninterrupted result; ``campaign=`` is its
+    `supervisor.CampaignConfig`. The arguments are pickled into ``dir``
+    as the campaign spec (devices as strings). Every layout equals the
+    one-shot grid bit for bit."""
+    if durable is not None and consume is None:
+        # first writer wins: a resume re-entering through sweep() keeps
+        # the original spec. consume= callbacks are not picklable;
+        # callers owning one (harvest_dataset) save their own spec.
+        supervisor.save_campaign_spec(durable, "sweep", dict(
+            profiles=profiles, epsilons=list(epsilons),
+            seeds=list(seeds), total_work=total_work, max_time=max_time,
+            dt=dt, tau_obj=tau_obj, adaptive=adaptive, policies=policies,
+            collect_traces=collect_traces, summary_warmup=summary_warmup,
+            workloads=workloads, detector=detector, faults=faults,
+            guard=guard, record_events=record_events, backend=backend,
+            chunk_size=chunk_size, devices=devices, typed_pi=typed_pi,
+            campaign=campaign, device=device))
+    res, _ = _sweep_impl(profiles, epsilons, seeds, total_work, max_time,
+                         dt, tau_obj, adaptive, policies, collect_traces,
+                         summary_warmup, workloads, detector, faults, guard,
+                         record_events, backend=backend,
+                         chunk_size=chunk_size, devices=devices,
+                         typed_pi=typed_pi, consume=consume,
+                         durable=durable, campaign=campaign, device=device)
+    return res
+
+
+def sweep_resumable(profiles, epsilons, seeds, total_work,
+                    max_time=3600.0, dt=1.0, tau_obj=10.0,
+                    adaptive=None, policies=None, collect_traces=True,
+                    summary_warmup=0, workloads=None, detector=None,
+                    faults=None, guard=None, record_events=None, *,
+                    backend: str = "auto", chunk_size: int,
+                    devices=None, typed_pi: bool = False, state=None,
+                    stop_after: Optional[int] = None,
+                    device: Union[None, str, torch.device] = None):
+    """Chunked sweep that can stop and resume across chunk boundaries:
+    returns (SweepResult | None, `executor.ExecState`). ``stop_after=``
+    processes at most that many chunks per call (the result is None until
+    the grid completes); pass the returned state (plain numpy, it
+    pickles) back via ``state=`` to continue where the previous call, or
+    process, left off. Same grid semantics as `sweep`."""
+    return _sweep_impl(profiles, epsilons, seeds, total_work, max_time,
+                       dt, tau_obj, adaptive, policies, collect_traces,
+                       summary_warmup, workloads, detector, faults, guard,
+                       record_events, backend=backend,
+                       chunk_size=chunk_size, devices=devices,
+                       typed_pi=typed_pi, consume=None, state=state,
+                       stop_after=stop_after, device=device)

@@ -15,9 +15,15 @@ CPU quickstart:
 (runs on the card by default; from Python, ``main([...], device="cpu")``
 runs on the CPU.)
 
-``--power`` and ``--plane`` (the paper's controller on the decode token
-rate) wait for the NRM and ControlPlane port, ``--obs-port`` for the
-observability services; they raise NotImplementedError.
+``--power`` runs the paper's controller on the decode token rate: after
+the first (warm-up) decode step the loop beats into an `NRM`
+(`repro_torch.core.nrm`, on the serving device), calibrates it at step 1,
+runs `control_step` once per ``sampling_period`` (0.05 s) of simulated
+time and reports the simulated energy and time; the generated tokens are
+those of the same call without it (power control changes only the
+accounting). ``--plane`` (the multi-tenant ControlPlane) and
+``--obs-port`` (the observability services) raise NotImplementedError
+naming their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PowerControlConfig
+from repro_torch.core.nrm import NRM
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import init_params
 from repro_torch.models import model as M
@@ -76,12 +83,15 @@ def rehome_cache(cfg: ModelConfig, cache: dict, batch: int, total_len: int
 
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
           seed: int = 0, device: Union[None, str, torch.device] = None,
-          quiet: bool = True) -> dict:
+          quiet: bool = True, power: bool = False, epsilon: float = 0.15,
+          plant: str = "v5e-chip") -> dict:
     """Serve ``cfg`` with random weights from ``seed``: prefill a batch of
     ``batch`` random prompts of ``prompt_len`` tokens, then decode ``gen``
     tokens greedily, through the CUDA kernels (``attn_impl="cuda"``,
-    ``scan_impl="cuda"``; their plain versions on the CPU). Runs on CUDA
-    unless ``device="cpu"``. Returns `main`'s result dict."""
+    ``scan_impl="cuda"``; their plain versions on the CPU). ``power``
+    puts the decode loop under an `NRM` on ``plant`` at ``epsilon`` (see
+    the module docstring). Runs on CUDA unless ``device="cpu"``. Returns
+    `main`'s result dict."""
     dev = resolve_device(device)
     total_len = prompt_len + gen
     opts = ApplyOptions(attn_impl="cuda", scan_impl="cuda")
@@ -95,11 +105,14 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
     dec_cache = rehome_cache(cfg, cache, batch, total_len)
     del cache
 
+    nrm = (NRM(PowerControlConfig(epsilon=epsilon, plant_profile=plant,
+                                  sampling_period=0.05), device=dev)
+           if power else None)
     tokens_out = []
-    sim_time = 0.0
+    sim_time, energy, last_ctrl, nrm_s = 0.0, 0.0, 0.0, 0.0
     next_tok = torch.argmax(logits, dim=-1)[:, None]
     t0 = time.time()
-    for _ in range(gen):
+    for i in range(gen):
         if cfg.input_mode == "tokens":
             dec_batch = {"tokens": next_tok}
         else:
@@ -110,7 +123,29 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
         logits, dec_cache = dec_fn(params, dec_cache, dec_batch)
         next_tok = torch.argmax(logits, dim=-1)[:, None]
         tokens_out.append(next_tok.cpu().numpy())  # waits for the step
-        sim_time += max(time.time() - t1, 1e-5)
+        dt_real = max(time.time() - t1, 1e-5)
+        if nrm is None:
+            sim_time += dt_real
+            continue
+        if i == 0:  # the warm-up step (kernel builds, allocator): skipped
+            continue
+        t2 = time.time()
+        if i == 1:
+            nrm.calibrate(float(batch) / dt_real)
+        profile = nrm.profile
+        # the step slows by the capped progress fraction: its simulated
+        # time and the energy the cap lets it draw
+        frac = float(profile.static_progress(
+            nrm.actuator._pcap)) / profile.progress_max
+        dt_eff = dt_real / max(frac, 1e-3)
+        sim_time += dt_eff
+        energy += float(profile.power_of_pcap(nrm.actuator._pcap)) * dt_eff
+        nrm.heartbeat(work=float(batch), t=sim_time)
+        if sim_time - last_ctrl >= nrm.cfg.sampling_period:
+            nrm.actuator.advance(sim_time - last_ctrl)
+            nrm.control_step(now=sim_time)
+            last_ctrl = sim_time
+        nrm_s += time.time() - t2
 
     toks = gen * batch
     result = {
@@ -118,8 +153,11 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
         "wall_s": round(time.time() - t0, 3),
         "sim_time_s": round(sim_time, 3),
         "tok_per_s_sim": round(toks / max(sim_time, 1e-9), 2),
-        "energy_j": 0.0,
-        "final_pcap": None,
+        "energy_j": round(energy, 1),
+        "final_pcap": (round(nrm.actuator._pcap, 1) if nrm is not None
+                       else None),
+        # host time the NRM took inside the decode loop (--power only)
+        "nrm_wall_s": None if nrm is None else round(nrm_s, 4),
         # the greedy tokens, [batch, gen]: one key beyond the reference's
         "generated": np.concatenate(tokens_out, axis=1),
     }
@@ -136,7 +174,9 @@ def main(argv=None, device: Union[None, str, torch.device] = None
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=64)
     p.add_argument("--gen", type=int, default=32)
-    p.add_argument("--power", action="store_true")
+    p.add_argument("--power", action="store_true",
+                   help="run the decode loop under the NRM's power "
+                        "control")
     p.add_argument("--plane", action="store_true",
                    help="route --power through the multi-tenant "
                         "ControlPlane (not ported yet)")
@@ -148,10 +188,10 @@ def main(argv=None, device: Union[None, str, torch.device] = None
                    help="live scrape endpoint (not ported yet)")
     args = p.parse_args(argv)
 
-    if args.power or args.plane:
+    if args.plane:
         raise NotImplementedError(
-            "--power / --plane need the NRM and ControlPlane port: ROADMAP "
-            "Queue 1 item 7")
+            "--plane needs the ControlPlane port: ROADMAP Queue 1 item 7b "
+            "(the fleet and the multi-tenant control plane)")
     if args.obs_port is not None:
         raise NotImplementedError(
             "--obs-port needs the observability services' port: ROADMAP "
@@ -161,7 +201,7 @@ def main(argv=None, device: Union[None, str, torch.device] = None
     if args.reduced:
         cfg = reduced(cfg)
     return serve(cfg, args.batch, args.prompt_len, args.gen, args.seed,
-                 device, args.quiet)
+                 device, args.quiet, args.power, args.epsilon, args.plant)
 
 
 if __name__ == "__main__":

@@ -975,3 +975,181 @@ def test_scenario_sweep_on_the_card_matches_the_cpu(dev):
                                rtol=0.01)
     np.testing.assert_allclose(a.detections.mean(-1), b.detections.mean(-1),
                                rtol=0.1, atol=0.1)
+
+
+# ---- the execution layer and the runtime on the card ---------------------
+
+@pytest.mark.parametrize("backend", ["kernel", "scan"])
+def test_chunked_sweep_on_the_card_equals_one_shot(dev, backend):
+    """Chunked equals one-shot bit for bit on the card; the kernel route
+    launches the seeds-route kernel once per chunk and no plain
+    version."""
+    kw = dict(total_work=1e9, max_time=256.0, collect_traces=False,
+              summary_warmup=30, backend=backend, device=dev)
+    grid = (["gros", "dahu"], [0.1, 0.3], range(300))
+    one = sim.sweep(*grid, **kw)
+    before = dict(K.ROUTE_LAUNCHES)
+    ch = sim.sweep(*grid, chunk_size=512, **kw)
+    launched = K.ROUTE_LAUNCHES["seeds"] - before["seeds"]
+    assert launched == (3 if backend == "kernel" else 0)
+    for k in ("progress_mean", "power_mean", "progress_hist", "pcap_hist"):
+        np.testing.assert_array_equal(one.summary[k], ch.summary[k],
+                                      err_msg=k)
+    np.testing.assert_array_equal(one.energy, ch.energy)
+    np.testing.assert_array_equal(one.n_steps, ch.n_steps)
+
+
+def test_more_devices_than_cards_raise(dev):
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"asked for {n + 1} devices"):
+        sim.sweep("gros", [0.1], range(4), total_work=10.0, max_time=64.0,
+                  chunk_size=2, devices=n + 1)
+    if n == 1:
+        with pytest.raises(ValueError, match="asked for 2 devices"):
+            sim.sweep("gros", [0.1], range(4), total_work=10.0,
+                      max_time=64.0, devices=2)
+
+
+def test_transfer_packs_every_leaf_dtype(dev):
+    """The merge's one-sync transfer keeps float32, int32, int64 and bool
+    leaves (and transposed views) exactly as the CPU's views do."""
+    from repro_torch.core import executor
+    x = np.arange(40, dtype=np.float32).reshape(10, 4)
+
+    def fn(b):
+        t = b["x"]
+        return {"f": t * 0.5, "i": t.to(torch.int32), "l": t.to(torch.int64),
+                "b": t > 7, "tr": t.T.contiguous().T}
+
+    a, _ = executor.run_grid(fn, {"x": x}, (), 10, chunk_size=4, device=dev)
+    c, _ = executor.run_grid(fn, {"x": x}, (), 10, chunk_size=4,
+                             device="cpu")
+    for k in c:
+        assert a[k].dtype == c[k].dtype
+        np.testing.assert_array_equal(a[k], c[k], err_msg=k)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "scan"])
+def test_chunked_trace_sweep_peak_stays_at_one_chunk(dev, backend):
+    """Trace mode, where a chunk's outputs are O(chunk x T): a grid in 4
+    chunks peaks at most 1.3x the device memory of a one-shot grid of
+    one chunk's runs (every chunk's tensors are freed before the next
+    chunk's are made)."""
+    kw = dict(total_work=1e9, max_time=128.0, backend=backend, device=dev)
+    profs, eps = ["gros", "dahu"], [0.1, 0.3]
+
+    def peak(seeds, **extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = sim.sweep(profs, eps, seeds, **kw, **extra)
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - base
+
+    peak(range(256))  # builds the kernel and warms the allocator
+    one, p_one = peak(range(256))
+    ch, p_ch = peak(range(1024), chunk_size=1024)
+    assert ch.traces["pcap"].shape[:3] == (2, 2, 1024)
+    np.testing.assert_array_equal(ch.traces["pcap"][:, :, :256],
+                                  one.traces["pcap"])
+    assert p_ch <= 1.3 * p_one, (p_ch, p_one)
+
+
+def test_durable_campaign_on_the_card_survives_transients(dev, tmp_path):
+    """A durable kernel-route campaign under FlakyGridFn transients (an
+    out-of-memory error among them) and a watchdog timeout: the merge is
+    bit for bit the plain executor's, on the card's stream (the timed-out
+    attempt's zombie enqueues the same launches as its retry)."""
+    from repro_torch.core import executor, supervisor
+    from repro_torch.obs.retry import RetryPolicy
+    prof, gains, seeds = sim.grid_rows(["gros", "dahu"], [0.1, 0.3],
+                                       range(256))
+    batched = {"prof": prof, "gains": gains, "seeds": seeds}
+    shared = (1e9, 256.0, 1.0, 30.0)
+    fn = sim._kernel_core(False)
+    ref, _ = executor.run_grid(fn, batched, shared, 1024, chunk_size=256,
+                               device=dev)
+    flaky = supervisor.FlakyGridFn(fn, failures={
+        0: supervisor.TransientFault("injected"),
+        2: torch.OutOfMemoryError("CUDA out of memory")},
+        delays={4: 3.0})
+    cfg = supervisor.CampaignConfig(
+        chunk_timeout_s=1.0, retry=RetryPolicy(max_retries=3, base_s=0.001,
+                                               max_s=0.01))
+    merged, report = supervisor.run_durable(
+        flaky, batched, shared, 1024, dir=tmp_path, chunk_size=256,
+        device=dev, config=cfg)
+    assert report.retries == 3 and not report.dead
+    for a, b in zip(executor._flatten(merged)[0],
+                    executor._flatten(ref)[0]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["pi", "pi_rls", "detector_guard",
+                                  "dutycycle"])
+def test_control_step_on_the_card(dev, case):
+    """`NRM.control_step` on the card (NRM(device=None) is CUDA): with a
+    simulated plant advancing and heartbeats at its measured rate, every
+    cap is finite and inside the actuator's range, and the PI caps
+    follow the CPU NRM's on the same beats (float paths that differ by
+    ulps: rtol 1e-3; duty-cycle's discrete ladder is held to its bounds
+    only)."""
+    from repro_torch.configs.base import PowerControlConfig
+    from repro_torch.core import faults as flt
+    from repro_torch.core.nrm import NRM
+    from repro_torch.core.policies import DutyCyclePolicy
+    from repro_torch.core.workloads import DetectorConfig
+    kw = {}
+    if case == "detector_guard":
+        kw = dict(detector=DetectorConfig(), guard=True)
+    if case == "dutycycle":
+        kw = dict(policy=DutyCyclePolicy())
+    cfg = PowerControlConfig(epsilon=0.1, adaptive=case == "pi_rls")
+    card = NRM(cfg, **kw)
+    host = NRM(cfg, device="cpu", **kw)
+    assert card.device.type == "cuda"
+    assert card.controller.state.prev_pcap_l.is_cuda
+    caps = []
+    for k in range(40):
+        meas = card.actuator.advance(1.0)
+        host.actuator.advance(1.0)
+        n = 0 if 20 <= k < 26 else max(1, int(meas["progress"]))
+        for i in range(n):
+            card.heartbeat(t=k + (i + 0.5) / n)
+            host.heartbeat(t=k + (i + 0.5) / n)
+        a, b = card.control_step(), host.control_step()
+        assert np.isfinite(a.pcap)
+        assert card.profile.pcap_min <= card.actuator._pcap \
+            <= card.profile.pcap_max
+        caps.append((a.pcap, b.pcap))
+    if case != "dutycycle":
+        np.testing.assert_allclose(*zip(*caps), rtol=1e-3)
+
+
+def test_nrm_runs_on_the_card(dev):
+    """run_simulated on the card: the default device is CUDA, the state
+    stays there, three resumed segments keep the work rising, and a
+    checkpoint round-trips."""
+    from repro_torch.configs.base import PowerControlConfig
+    from repro_torch.core.nrm import NRM
+    nrm = NRM(PowerControlConfig(epsilon=0.1, plant_profile="gros"))
+    works = []
+    for seed in range(3):
+        tr = nrm.run_simulated(total_work=1e9, max_time=64.0, seed=seed)
+        assert np.isfinite(tr["power"]).all()
+        works.append(tr["work"])
+    assert works[0][-1] < works[1][0] < works[2][0]
+    assert nrm.actuator.state.work.is_cuda
+    other = NRM(PowerControlConfig(epsilon=0.1, plant_profile="gros"))
+    other.load_state_dict(nrm.state_dict())
+    assert other.state_dict() == nrm.state_dict()
+
+
+def test_serve_power_on_the_card_keeps_the_tokens(dev):
+    from repro_torch.launch import serve
+    argv = ["--reduced", "--batch", "2", "--prompt-len", "16", "--gen", "8",
+            "--quiet"]
+    a = serve.main(argv)
+    b = serve.main(argv + ["--power"])
+    np.testing.assert_array_equal(a["generated"], b["generated"])
+    assert b["final_pcap"] is not None and b["energy_j"] > 0

@@ -16,8 +16,8 @@ Tiers:
   streams: recorder-on is bitwise neutral in trace and summary mode and
   on a sweep axis, the recorder is excluded from the fast paths, and the
   chaos timeline agrees with the guard's counters and the schedule's
-  windows. The chunked half of the sweep case and the NRM resume case
-  wait for ROADMAP Queue 1 item 7.
+  windows; the chunked half of the sweep case bit-equal to one-shot (the
+  NRM resume case is in `tests/test_torch_nrm.py`).
 """
 import numpy as np
 import pytest
@@ -299,3 +299,20 @@ def test_chaos_timeline_agrees_with_guard_counters_and_schedule():
     assert all(e.source == evt.SRC_GUARD
                for e in holds + fsafes + recovers + resets)
     assert all(e.source == evt.SRC_FAULTS for e in enters + exits)
+
+
+def test_recorder_neutral_on_sweep_axis_and_chunked():
+    """The chunked half of the reference's test: rings and summaries of
+    a chunked recorded sweep equal the one-shot ones bit for bit."""
+    kw = dict(total_work=2000.0, max_time=300.0, collect_traces=False,
+              faults=_CHAOS["faults"], guard=_CHAOS["guard"], **CPU)
+    eps = (0.05, 0.1)
+    off = sim.sweep("gros", eps, range(3), **kw)
+    on = sim.sweep("gros", eps, range(3), record_events=16, **kw)
+    chunked = sim.sweep("gros", eps, range(3), record_events=16,
+                        chunk_size=2, **kw)
+    for k in off.summary:
+        np.testing.assert_array_equal(off.summary[k], chunked.summary[k],
+                                      err_msg=k)
+    np.testing.assert_array_equal(on.events, chunked.events)
+    np.testing.assert_array_equal(on.guard_state, chunked.guard_state)

@@ -19,11 +19,12 @@ Tiers:
   (`tests/_torch_scenarios.py`): the scan engine's bar (rtol 1e-5, atol
   1e-5; flags and counts exactly);
 * mirrors of `tests/test_faults.py` on the port's own streams at the
-  reference's bars, but `test_chunked_faulted_guarded_sweep_equals_one_shot`
-  (chunked sweeps are ROADMAP Queue 1 item 7, and the reference fails
-  it). The clean arm of each neutrality test runs on the scan engine, as
-  every reference run does (a plain PI run without scenarios takes the
-  port's kernel route).
+  reference's bars; `test_chunked_faulted_guarded_sweep_equals_one_shot`
+  holds the port to the exact equality the reference misses by an ulp
+  in its guard state (ROADMAP Queue 3), and the fault and guard state
+  resume a run. The clean arm of each neutrality test runs on the scan
+  engine, as every reference run does (a plain PI run without scenarios
+  takes the port's kernel route).
 """
 import numpy as np
 import pytest
@@ -534,3 +535,49 @@ def test_rls_spike_corrupted_stream_keeps_gains_bounded():
     k_i_min = 1.0 / (prof.K_L * cfg.kl_clamp * tau_obj)
     k_i_max = cfg.kl_clamp / (prof.K_L * tau_obj)
     assert k_i_min * 0.99 <= float(s.k_i) <= k_i_max * 1.01
+
+
+def test_chunked_faulted_guarded_sweep_equals_one_shot():
+    """The chunked half the reference's own test fails (its guard_state
+    moves by an ulp between chunkings, ROADMAP Queue 3): in the port each
+    run depends only on its row, so the chunked grid equals one-shot bit
+    for bit, guard state included, on one device and split over two."""
+    scheds = [_noop_schedule(),
+              flt.FaultSchedule((flt.FaultWindow("hb_dropout", 20.0, 15.0,
+                                                 p1=1.0),))]
+    kw = dict(faults=scheds, guard=flt.GuardConfig(), collect_traces=False,
+              **KW)
+    one = sim.sweep("gros", [0.1, 0.2], range(2), **kw)
+    for layout in (dict(chunk_size=3), dict(chunk_size=3,
+                                            devices=("cpu", "cpu"))):
+        ch = sim.sweep("gros", [0.1, 0.2], range(2), **layout, **kw)
+        np.testing.assert_array_equal(one.energy, ch.energy)
+        np.testing.assert_array_equal(one.summary["pcap_hist"],
+                                      ch.summary["pcap_hist"])
+        np.testing.assert_array_equal(one.guard_state, ch.guard_state)
+    assert one.guard_state.shape == (2, 2, 2, flt.GUARD_STATE_DIM)
+
+
+def test_fault_and_guard_state_resume_a_run():
+    """`resume_init(fault_state=, guard_state=)` continues a faulted,
+    guarded run: the guard's cumulative counters keep counting, and a
+    carry holding either state needs its input."""
+    p = PROFILES["gros"]
+    g = PIGains.from_model(p, 0.1)
+    sched = flt.FaultSchedule((flt.FaultWindow("hb_dropout", 10.0, 20.0,
+                                               p1=1.0),), period=40.0)
+    kw = dict(gains=g, total_work=1e9, max_time=80.0, faults=sched,
+              guard=flt.GuardConfig(hold_k=2, failsafe_k=5), **CPU)
+    r1 = sim.simulate_closed_loop(p, seed=1, **kw)
+    init = sim.resume_init(r1.plant_state, r1.pi_state, r1.pcap,
+                           fault_state=r1.fault_state,
+                           guard_state=r1.guard_state)
+    r2 = sim.simulate_closed_loop(p, seed=2, init=init, **kw)
+    assert r2.guard_state[flt.G_N_INVALID] > r1.guard_state[flt.G_N_INVALID]
+    assert r2.guard_state[flt.G_N_FAILSAFE] >= r1.guard_state[
+        flt.G_N_FAILSAFE]
+    assert float(r2.traces["work"][0]) > float(r1.work)
+    for drop in ("faults", "guard"):
+        with pytest.raises(ValueError, match=f"{drop} state"):
+            sim.simulate_closed_loop(p, seed=2, init=init, **{
+                **kw, drop: None})

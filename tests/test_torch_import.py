@@ -35,7 +35,9 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.core.fma, repro_torch.core.phases, "
             "repro_torch.core.workloads, repro_torch.core.faults, "
             "repro_torch.core.workloads.schedule, "
-            "repro_torch.core.workloads.detect, repro_torch.obs.events\n"
+            "repro_torch.core.workloads.detect, repro_torch.obs.events, "
+            "repro_torch.core.executor, repro_torch.core.supervisor, "
+            "repro_torch.core.nrm, repro_torch.obs.sink\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -156,3 +158,34 @@ def test_scenario_makers_refuse_to_run_without_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert sched.resolve("gros", device="cpu").ends.device.type == "cpu"
+
+
+def test_runtime_entry_points_refuse_to_run_without_cuda(tmp_path):
+    """The execution layer and the runtime run on CUDA by default, and
+    raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    import numpy as np
+    from repro_torch.configs.base import PowerControlConfig
+    from repro_torch.core import executor, sim, supervisor
+    from repro_torch.core.nrm import NRM, SimulatedPowerActuator
+    from repro_torch.core.plant import PROFILES
+    from repro_torch.core.policies.offline_rl import harvest_dataset
+    grid = ({"x": np.arange(4, dtype=np.float32)}, (), 4)
+    makers = [
+        lambda: executor.run_grid(lambda b: b, *grid, chunk_size=2),
+        lambda: executor.run_grid(lambda b: b, *grid, devices="all"),
+        lambda: supervisor.run_durable(lambda b: b, *grid,
+                                       dir=tmp_path / "c"),
+        lambda: NRM(PowerControlConfig()),
+        lambda: SimulatedPowerActuator(PROFILES["gros"]),
+        lambda: sim.sweep("gros", [0.1], range(4), total_work=10.0,
+                          max_time=64.0, chunk_size=2),
+        lambda: sim.sweep_resumable("gros", [0.1], range(4),
+                                    total_work=10.0, max_time=64.0,
+                                    chunk_size=2, stop_after=1),
+        lambda: harvest_dataset("gros", [0.1], range(2), total_work=10.0,
+                                max_time=64.0)]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

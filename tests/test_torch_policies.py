@@ -21,9 +21,9 @@ Inputs come from a seed through numpy into both packages. Tiers:
   entry points; whole runs against the reference's scan sweep at rtol
   0.05 on seed means (other random streams).
 
-Left to later slices (ROADMAP): the NRM round trips of policy state
-(Queue 1 item 7) and the reference's compile-cache tests (a JAX cache
-with no PyTorch counterpart).
+The NRM round trips of policy state are in `tests/test_torch_nrm.py`;
+the reference's compile-cache tests (a JAX cache with no PyTorch
+counterpart) are not mirrored.
 """
 import dataclasses
 
@@ -262,8 +262,16 @@ def test_plane_step_runs_the_policy_and_rejects_detector_and_guard():
 
 
 def test_harvest_dataset_waits_for_the_executor():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        RL.harvest_dataset("gros", [0.1], range(2), total_work=100.0)
+    """The harvest streams through the executor, one chunk per call of
+    its consume hook, and keeps no trace beyond a chunk."""
+    from repro_torch.obs import metrics as obs_metrics
+    chunks = obs_metrics.get_registry().counter("executor_chunks_total",
+                                                "grid chunks executed")
+    before = chunks.value()
+    d = RL.harvest_dataset("gros", [0.1], range(2), total_work=100.0,
+                           max_time=64.0, chunk_size=1, device="cpu")
+    assert chunks.value() - before == 2
+    assert len(d["s"]) > 0 and {len(v) for v in d.values()} == {len(d["s"])}
 
 
 # ---- offline RL: dataset and fitted Q ----------------------------------

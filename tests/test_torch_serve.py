@@ -117,7 +117,7 @@ def test_serve_is_seeded():
     assert not np.array_equal(a, c)
 
 
-@pytest.mark.parametrize("flags,item", [(["--power"], "item 7"),
+@pytest.mark.parametrize("flags,item", [(["--plane"], "item 7"),
                                         (["--power", "--plane"], "item 7"),
                                         (["--obs-port", "0"], "item 8")])
 def test_unported_serve_flags_raise(flags, item):

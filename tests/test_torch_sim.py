@@ -19,7 +19,10 @@ from repro.core import sim as jsim  # noqa: E402
 from repro_torch.core import sim  # noqa: E402
 from repro_torch.core.energy import (pareto_front, summarize_run,  # noqa: E402
                                      tradeoff_table)
-from repro_torch.core.adaptive import RLSConfig  # noqa: E402
+from repro_torch.core.adaptive import RLSConfig, RLSState  # noqa: E402
+from repro_torch.core.controller import PIState  # noqa: E402
+from repro_torch.core.plant import PlantState  # noqa: E402
+from repro_torch.core.policies import base as pol_base  # noqa: E402
 from repro_torch.core.plant import PROFILES  # noqa: E402
 from repro_torch.core.policies import DutyCyclePolicy, PIPolicy  # noqa: E402
 from repro_torch.core.faults import FaultSchedule  # noqa: E402
@@ -193,7 +196,6 @@ def test_pareto_front_extraction():
     assert labels == [(9.0, 9.0), (10.0, 5.0), (12.0, 3.0), (15.0, 2.0)]
 
 
-NOT_YET = (NotImplementedError, "ROADMAP")
 KERNEL_ONLY = (ValueError, "fixed-gain PI path only")
 TYPED_ONLY = (ValueError, "typed_pi")
 HOLD = PhaseSchedule((Phase(50.0),))
@@ -210,34 +212,57 @@ HOLD = PhaseSchedule((Phase(50.0),))
     (dict(typed_pi=True, faults=FaultSchedule()), TYPED_ONLY),
     (dict(typed_pi=True, guard=True), TYPED_ONLY),
     (dict(record_events=-3), (ValueError, "record_events")),
-    (dict(chunk_size=4), NOT_YET),
-    (dict(devices="all"), NOT_YET), (dict(durable="/nonexistent"), NOT_YET),
+    (dict(chunk_size=4, devices=2), (ValueError, "asked for 2 devices")),
+    (dict(devices=()), (ValueError, "names no device")),
+    (dict(devices=0), (ValueError, "asked for 0 devices")),
     (dict(backend="scan", adaptive=RLSConfig(), workloads=HOLD,
-          consume=print), NOT_YET)])
+          consume=print, devices=3), (ValueError, "asked for 3 devices"))])
 def test_sweep_rejects_what_the_kernel_cannot_run(kwargs, error):
-    """What later slices bring raises NotImplementedError naming its
-    ROADMAP item; the policy axis's misuses and the scenario axes on the
-    paths that cannot carry them (the kernel route, the typed PI path)
-    raise the reference's ValueErrors."""
+    """The policy axis's misuses and the scenario axes on the paths that
+    cannot carry them (the kernel route, the typed PI path) raise the
+    reference's ValueErrors; so do more CUDA devices than exist (none
+    here), as the reference's `resolve_devices` does, and a device list
+    that names none."""
     with pytest.raises(error[0], match=error[1]):
         sim.sweep("gros", [0.1], [0], total_work=100.0, max_time=64.0,
                   **kwargs, **CPU)
 
 
+def _carry(**kw):
+    """A resume carry of a run at full power, with the given extras."""
+    plant = PlantState(progress_l=-1.0, dropped=False, energy=0.0,
+                       work=0.0)
+    return sim.resume_init(plant, PIState(0.0, -0.05), 120.0, **kw)
+
+
+_DUTY = np.zeros(17, np.float32)
+_DUTY[16] = pol_base.branch_tag(DutyCyclePolicy().branch)
+_RLS = RLSState(theta=[12.0, 0.5], P=[[1e2, 0.0], [0.0, 1e2]],
+                prev_phi=[0.0, 0.0], has_prev=0.0, since_update=0.0,
+                k_p=0.01, k_i=0.04, tau_hat=0.3, kl_hat=25.6)
+
+
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(init=object()), NOT_YET),
+    (dict(init=_carry(rls=_RLS)), (ValueError, "branch 'pi_rls'")),
     (dict(policy=PIPolicy(), adaptive=RLSConfig()),
      (ValueError, "not both")),
     (dict(policy=DutyCyclePolicy(), design=PROFILES["dahu"]),
      (ValueError, "design= only applies")),
-    (dict(workload=HOLD, init=object()), NOT_YET),
-    (dict(detector=DetectorConfig(), init=object()), NOT_YET),
-    (dict(faults=FaultSchedule(), init=object()), NOT_YET),
-    (dict(guard=True, init=object()), NOT_YET),
+    (dict(workload=HOLD, init=_carry(policy_state=_DUTY)),
+     (ValueError, "branch 'dutycycle'")),
+    (dict(init=_carry(det_state=np.zeros(8))),
+     (ValueError, "detector state")),
+    (dict(init=_carry(fault_state=np.zeros(6))),
+     (ValueError, "faults state")),
+    (dict(init=_carry(guard_state=np.zeros(8))),
+     (ValueError, "guard state")),
     (dict(record_events=0), (ValueError, "record_events"))])
 def test_simulate_rejects_what_the_kernel_cannot_run(kwargs, error):
-    """Resuming (``init=``) waits for ROADMAP Queue 1 item 7, with every
-    scenario argument too; a ring needs a positive size."""
+    """A resume carry that does not fit the run raises the reference's
+    ValueErrors: adaptive-PI state without ``adaptive=``, another
+    policy's state,
+    a scenario state without its input; a ring needs a positive
+    size."""
     with pytest.raises(error[0], match=error[1]):
         sim.simulate_closed_loop("gros", 0.1, total_work=100.0,
                                  max_time=64.0, **kwargs, **CPU)

@@ -19,9 +19,10 @@ Tiers:
 * mirrors of `tests/test_workloads.py` and `tests/test_phases.py` on the
   port's own streams, at the reference's bars. Not mirrored:
   `test_static_path_bit_for_bit_vs_prephases_engine` (the reference
-  fails it), the resume tests (`resume_init`, ROADMAP Queue 1 item 7)
-  and the two fleet tests (item 7); the one-compile half of the sweep
-  axis test is a JAX cache property with no PyTorch counterpart.
+  fails it) and the two fleet tests (ROADMAP Queue 1 item 7b); the
+  one-compile half of the sweep axis test is a JAX cache property with
+  no PyTorch counterpart. The resume tests (`resume_init(t0=,
+  det_state=)`) run at the end of this file.
 """
 import dataclasses
 
@@ -426,3 +427,46 @@ def test_pi_rls_on_change_hook_resets_covariance():
     assert float(after.since_update) == pytest.approx(7.0)
     assert not bool(after.has_prev)
     np.testing.assert_allclose(after.theta.numpy(), before.theta.numpy())
+
+
+# ---- resuming a scheduled run (twins of the reference's resume tests) ----
+
+def test_resume_t0_continues_the_schedule_clock():
+    """`resume_init(t0=)` carries the sim time the schedule gathers by, so
+    a split scheduled run continues mid-script; the default t0=0
+    restarts it (the NRM's per-segment semantics)."""
+    p = PROFILES["gros"]
+    g = PIGains.from_model(p, 0.1)
+    sched = PhaseSchedule((Phase(100.0), Phase(100.0, scale={"K_L": 2.0})))
+    kw = dict(gains=g, total_work=1e9, workload=sched, device="cpu")
+    r1 = sim.simulate_closed_loop(p, max_time=150.0, seed=3, **kw)
+    assert int(r1.traces["phase"][-1]) == 1
+    init = sim.resume_init(r1.plant_state, r1.pi_state, r1.pcap,
+                           t0=r1.exec_time)
+    r2 = sim.simulate_closed_loop(p, max_time=200.0, seed=4, init=init,
+                                  **kw)
+    assert int(r2.traces["phase"][0]) == 1
+    assert float(r2.traces["t"][0]) == pytest.approx(151.0)
+    init0 = sim.resume_init(r1.plant_state, r1.pi_state, r1.pcap)
+    r3 = sim.simulate_closed_loop(p, max_time=50.0, seed=4, init=init0,
+                                  **kw)
+    assert int(r3.traces["phase"][0]) == 0
+
+
+def test_detector_state_resumes_and_counts():
+    from repro_torch.core.workloads import DetectorConfig
+    p = PROFILES["gros"]
+    g = PIGains.from_model(p, 0.1)
+    kw = dict(gains=g, max_time=256.0, device="cpu")
+    r1 = sim.simulate_closed_loop(p, total_work=300.0, seed=1,
+                                  detector=DetectorConfig(), **kw)
+    assert r1.detector_state is not None
+    init = sim.resume_init(r1.plant_state, r1.pi_state, r1.pcap,
+                           det_state=r1.detector_state)
+    r2 = sim.simulate_closed_loop(p, total_work=600.0, seed=2, init=init,
+                                  detector=DetectorConfig(), **kw)
+    assert r2.detector_state is not None
+    assert r2.n_phase_changes >= r1.n_phase_changes
+    assert r2.detector_state[6] > 0  # DET_SINCE kept counting
+    with pytest.raises(ValueError, match="detector"):
+        sim.simulate_closed_loop(p, total_work=100.0, init=init, **kw)
