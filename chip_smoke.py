@@ -143,7 +143,29 @@ Phases, each of which fails the run if a check fails:
    rising, and 500 `control_step` periods on a `SimulatedPowerActuator`
    on the card and on the CPU (ms per period); (f) `serve.main` with
    ``--power`` on qwen3-8b at full width, its tokens equal to phase 7's,
-   its decode tok/s against phase 7's and the simulated energy and time.
+   its decode tok/s against phase 7's and the simulated energy and time;
+15. the fleet, the multi-tenant control plane and the observability
+   services on the card (`[fleet]`, `[plane]`, `[serve]`, `[obs]`
+   lines), which bring no kernel of their own: (a) the reference's
+   `beyond/fleet_64` and `fleet_1024` (steady power under the budget by
+   `test_fleet_respects_power_budget`'s bar, finite rows) and a
+   1,024-node gros / dahu / yeti fleet under PI / RLS-PI / duty-cycle
+   with phase-staggered schedules (the allocation shifts to the class
+   that flips compute-bound); (b) `fleet_sweep` of 30 seeds x 1,024
+   nodes x 60 steps in chunks of 8 (two rows against `simulate_fleet`
+   at rtol 1e-6), then durable in a child SIGKILLed after 2 commits and
+   resumed by `resume_campaign`, bit-equal; (c) `benchmarks/
+   plane_load.py`'s tenant mix at 1k, 10k and 100k tenants x 20 ticks
+   (ticks/s, tenant-ticks/s), a chunked tick equal to the unchunked one,
+   one blacked-out guarded tenant quarantined with the others
+   bit-identical, a snapshot restored in a fresh process making the same
+   decisions; (d) `serve --power --plane --obs-port 0` on qwen3-8b, its
+   tokens equal to phase 7's, `/metrics`, `/metrics.json`,
+   `/events?log=plane` and `/healthz` scraped from a thread during the
+   call and passed through `obs.validate`; (e) `regress` over
+   BENCH_sim.json on the card, the CPU's report and exit code. Each step
+   prints its wall, its launches a step or a tick, the device's idle
+   share and its peak memory.
 
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
@@ -2222,12 +2244,13 @@ def _same_runs(res, main_out, main_summary, what):
 
 
 def runtime_phase(dev, main_grid, main_kw, main_out, main_summary, serve7,
-                  smi) -> None:
+                  smi) -> dict:
     """Phase 14: the execution layer (chunked, sharded, durable sweeps,
     resume) and the NRM runtime (`NRM.run_simulated`, `control_step`,
     `serve --power`) on the card. They bring no kernel of their own: the
     chunked and durable sweeps launch the closed-loop kernel once per
-    chunk, `serve --power` the attention kernels."""
+    chunk, `serve --power` the attention kernels. Returns the `serve
+    --power` result."""
     import shutil
 
     import torch
@@ -2484,6 +2507,451 @@ def runtime_phase(dev, main_grid, main_kw, main_out, main_summary, serve7,
     for d in (flaky_dir, kill_dir):
         shutil.rmtree(d, ignore_errors=True)
     print(f"[runtime] phase 14 in {time.perf_counter() - started:.1f} s; "
+          f"on {smi}")
+    return res
+
+# ---- phase 15: the fleet, the control plane and the services --------------
+
+# (a) `benchmarks/beyond_adaptive.py`'s fleets: dahu at 0.7 x peak, 60
+# steps; the steady window (steps 20+) is the benchmark's. The bar is
+# `tests/test_system.py::test_fleet_respects_power_budget`'s: steady
+# power under the budget plus a tenth of peak (0.7 x peak for its 0.6)
+FLEETS = (64, 1024)
+FLEET_STEPS, FLEET_BUDGET, FLEET_STEADY = 60, 0.7, 20
+FLEET_BAR = 0.1
+# (a, heterogeneous) gros / dahu / yeti x 1,024 nodes under PI / RLS-PI /
+# duty-cycle, class 0 flipping STREAM -> DGEMM at 60 s: the bar of
+# `tests/test_workloads.py::test_fleet_per_node_schedules_shift_budget`
+HET_STEPS, HET_SHIFT = 160, 0.02
+# (b) a 30-seed campaign over fleet_1024 in chunks of 8; the durable
+# child kills itself after 2 commits
+CAMP_SEEDS, CAMP_CHUNK, CAMP_KILL = 30, 8, 2
+CAMP_ROWS = (3, 17)
+# (c) `benchmarks/plane_load.py`'s tenant mix and its non-quick run
+PLANE_COUNTS, PLANE_TICKS, PLANE_CHUNK = (1_000, 10_000, 100_000), 20, 16384
+
+
+def make_plane(n: int, device):
+    """`benchmarks/plane_load.py`'s plane: ``n`` tenants, ~55% fixed-gain
+    PI, 15% RLS-adaptive PI, 15% duty-cycle, 15% detector-enabled PI, in
+    one batch add per group."""
+    from repro_torch.core.adaptive import RLSConfig
+    from repro_torch.core.plane import ControlPlane
+    from repro_torch.core.policies import DutyCyclePolicy, PIPolicy
+    plane = ControlPlane(profile="gros", epsilon=0.1, dt=1.0, capacity=n,
+                         max_beats=8, device=device)
+    q = max(n * 15 // 100, 1)
+    plane.add_tenants(n - 3 * q)
+    plane.add_tenants(q, policy=PIPolicy(adaptive=RLSConfig()))
+    plane.add_tenants(q, policy=DutyCyclePolicy())
+    plane.add_tenants(q, detector=True)
+    return plane
+
+
+def drive_plane(plane, ticks: int, beats_per_tick: int = 3,
+                skip=(), **tick_kw):
+    """`benchmarks/plane_load.py`'s service loop: evenly spread beats for
+    every tenant (but the slots in ``skip``), one tick; returns the
+    decisions of each tick."""
+    n = plane.n_tenants
+    slots = np.asarray([s for s in range(n) if s not in set(skip)])
+    ids = np.repeat(slots, beats_per_tick)
+    offs = (np.arange(beats_per_tick) + 1.0) / (beats_per_tick + 1.0)
+    out = []
+    for _ in range(ticks):
+        t0, dt = plane._t, plane.dt
+        plane.ingest(ids, np.broadcast_to(t0 + offs * dt,
+                                          (len(slots), beats_per_tick)
+                                          ).ravel())
+        out.append(plane.tick(now=t0 + dt, **tick_kw))
+    return out
+
+
+def _measured(dev, fn):
+    """(result, wall s, peak device memory above the baseline GiB)."""
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return out, wall, (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+
+def _idle(prof, label: str) -> str:
+    if prof is None:
+        return "idle share not measured"
+    return f"{label} {100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}%"
+
+
+def _profile_line(prof, per: int, what: str) -> str:
+    if prof is None:
+        return f"launches a {what} and idle share not measured"
+    return (f"{prof['launches'] / per:.0f} launches a {what}, device idle "
+            f"{100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}% "
+            f"(torch.profiler, device activity only, {per} {what}s)")
+
+
+def fleet_plane_phase(dev, serve7, serve14, smi) -> None:
+    """Phase 15: the fleet (`repro_torch.core.hierarchy`), the
+    multi-tenant control plane (`repro_torch.core.plane.ControlPlane`) and
+    the observability services (`repro_torch.obs`: the scrape endpoint,
+    `validate`, `regress`) on the card. They bring no kernel of their
+    own: `serve --power --plane` launches the attention kernels."""
+    import pickle
+    import shutil
+    import threading
+    import urllib.request
+
+    from repro_torch.core import supervisor
+    from repro_torch.core.adaptive import RLSConfig
+    from repro_torch.core.faults import GuardConfig
+    from repro_torch.core.hierarchy import (FleetConfig, fleet_sweep,
+                                            simulate_fleet)
+    from repro_torch.core.plane import ControlPlane
+    from repro_torch.core.plant import PROFILES
+    from repro_torch.core.policies import DutyCyclePolicy, PIPolicy
+    from repro_torch.core.workloads import Phase, PhaseSchedule
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import serve
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import regress, validate
+    started = time.perf_counter()
+    dahu = PROFILES["dahu"]
+    peak1 = float(dahu.power_of_pcap(dahu.pcap_max))
+
+    # ---- a. the reference's beyond/fleet_64 and fleet_1024 -------------
+    for n in FLEETS:
+        fc = FleetConfig(n_nodes=n, epsilon=0.1,
+                         power_budget=FLEET_BUDGET * peak1 * n)
+        run = lambda: simulate_fleet(dahu, fc, FLEET_STEPS, seed=0)
+        run()  # first call: allocator warm-up
+        tr, wall, peak = _measured(dev, run)
+        prof = device_breakdown(run, f"fleet_{n}", host_ops=False,
+                                quiet=True)
+        for k, v in tr.items():
+            check(np.isfinite(v).all(), f"fleet_{n}: {k} not finite")
+        steady = float(tr["power"][FLEET_STEADY:].mean())
+        budget = fc.power_budget
+        check(steady < budget + FLEET_BAR * peak1 * n,
+              f"fleet_{n}: steady power {steady:.1f} W over the bar "
+              f"{budget + FLEET_BAR * peak1 * n:.1f} W")
+        print(f"[fleet] a. beyond/fleet_{n} (dahu, budget "
+              f"{FLEET_BUDGET} x peak = {budget:.1f} W, {FLEET_STEPS} "
+              f"steps): steady power {steady:.1f} W ({steady / budget:.4f}"
+              f" x budget), median progress "
+              f"{float(tr['progress_med'][FLEET_STEADY:].mean()):.3f} Hz; "
+              f"wall {wall:.3f} s ({1e3 * wall / FLEET_STEPS:.3f} ms a "
+              f"step), {_profile_line(prof, FLEET_STEPS, 'step')}, peak "
+              f"device memory {peak:.4f} GiB")
+
+    # ---- a. heterogeneous: budget shifting across classes ---------------
+    stream = {"alpha": 3.0, "beta": 0.6}
+    dgemm = {"alpha": 0.3, "beta": 1.14, "K_L": 2.0}
+    profs = [PROFILES[p] for p in ("gros", "dahu", "yeti")]
+    n = 1024
+    hpeak = sum(float(p.power_of_pcap(p.pcap_max)) for p in profs) * n / 3
+    hfc = FleetConfig(n_nodes=n, epsilon=0.05, power_budget=0.55 * hpeak,
+                      reallocate_every=5)
+    flip = PhaseSchedule((Phase(60.0, scale=stream),
+                          Phase(200.0, scale=dgemm)))
+    hold = PhaseSchedule((Phase(60.0, scale=stream),))
+    hkw = dict(policies=[PIPolicy(), PIPolicy(adaptive=RLSConfig()),
+                         DutyCyclePolicy()], schedules=[flip, hold, hold])
+    run = lambda: simulate_fleet(profs, hfc, HET_STEPS, seed=0, **hkw)
+    tr, wall, peak = _measured(dev, run)
+    prof = device_breakdown(run, "heterogeneous fleet", host_ops=False,
+                            quiet=True)
+    alloc = tr["alloc_class"]
+    before = float(alloc[30, 0] / alloc[30].sum())
+    after = float(alloc[140:, 0].mean() / alloc[140:].mean(0).sum())
+    check(tr["phase_class"][30].tolist() == [0.0, 0.0, 0.0]
+          and tr["phase_class"][100].tolist() == [1.0, 0.0, 0.0],
+          f"heterogeneous fleet phases {tr['phase_class'][[30, 100]]}")
+    check(after > before + HET_SHIFT, f"heterogeneous fleet: class 0's "
+          f"share {before:.4f} -> {after:.4f}, not above +{HET_SHIFT}")
+    check(all(np.isfinite(v).all() for v in tr.values()),
+          "heterogeneous fleet rows not finite")
+    print(f"[fleet] a. heterogeneous fleet, 1,024 nodes over gros / "
+          f"dahu / yeti (PI / RLS-PI / duty-cycle; class 0 STREAM -> "
+          f"DGEMM at 60 s), budget 0.55 x peak, {HET_STEPS} steps: class "
+          f"0's share of the allocation {before:.4f} -> {after:.4f} (bar "
+          f"+{HET_SHIFT}),"
+          f" per-class mean allocation at step 30 "
+          f"{np.round(alloc[30], 3).tolist()} W, steps 140+ "
+          f"{np.round(alloc[140:].mean(0), 3).tolist()} W; steady power "
+          f"{float(tr['power'][40:].mean()):.1f} W of "
+          f"{hfc.power_budget:.1f} W; wall {wall:.3f} s ("
+          f"{1e3 * wall / HET_STEPS:.3f} ms a step), "
+          f"{_profile_line(prof, HET_STEPS, 'step')}, peak {peak:.4f} GiB")
+
+    # ---- b. a multi-seed campaign, plain and durable --------------------
+    cfc = FleetConfig(n_nodes=1024, epsilon=0.1,
+                      power_budget=FLEET_BUDGET * peak1 * 1024)
+    run = lambda: fleet_sweep(dahu, cfc, FLEET_STEPS, range(CAMP_SEEDS),
+                              chunk_size=CAMP_CHUNK)
+    camp, wall_b, peak_b = _measured(dev, run)
+    prof = device_breakdown(run, "campaign", host_ops=False, quiet=True)
+    n_chunks = -(-CAMP_SEEDS // CAMP_CHUNK)
+    bit = []
+    for s in CAMP_ROWS:
+        one = simulate_fleet(dahu, cfc, FLEET_STEPS, seed=s)
+        for k, v in one.items():
+            if k == "class_counts":
+                continue
+            check(np.allclose(camp[k][s], v, rtol=1e-6, atol=0.0),
+                  f"campaign row {s} {k} != simulate_fleet(seed={s})")
+            bit.append(np.array_equal(camp[k][s], v))
+    camp_dir = ROOT / "build" / "fleet_campaign"
+    shutil.rmtree(camp_dir, ignore_errors=True)
+    code = (f"import sys\nsys.path.insert(0, {str(ROOT / 'src')!r})\n"
+            "from repro_torch.core.hierarchy import FleetConfig, "
+            "fleet_sweep\n"
+            "from repro_torch.core.plant import PROFILES\n"
+            "from repro_torch.core.supervisor import CampaignConfig\n"
+            f"fleet_sweep(PROFILES['dahu'], FleetConfig(n_nodes=1024, "
+            f"epsilon=0.1, power_budget={cfc.power_budget!r}), "
+            f"{FLEET_STEPS}, range({CAMP_SEEDS}), "
+            f"chunk_size={CAMP_CHUNK}, "
+            f"durable={str(camp_dir)!r}, campaign=CampaignConfig("
+            f"checkpoint_every=1, kill_after_commits={CAMP_KILL}))\n"
+            "print('SURVIVED_KILL')\n")
+    t0 = time.perf_counter()
+    # a fresh interpreter, never a fork of this CUDA process
+    child = subprocess.run([sys.executable, "-c", code],
+                           capture_output=True, text=True, timeout=600)
+    w_child = time.perf_counter() - t0
+    check(child.returncode == -9, f"fleet campaign child exit "
+          f"{child.returncode}: {child.stdout[-500:]} "
+          f"{child.stderr[-2000:]}")
+    recs, _ = supervisor.read_journal(camp_dir / supervisor.JOURNAL_NAME)
+    commits = sum(r["k"] == "commit" for r in recs)
+    check(commits == CAMP_KILL, f"killed fleet child committed {commits}")
+    res, w_resume, _ = _measured(
+        dev, lambda: supervisor.resume_campaign(camp_dir))
+    for k, v in camp.items():
+        check(np.array_equal(res[k], v), f"resumed fleet campaign {k} "
+              f"differs from the plain campaign")
+    shutil.rmtree(camp_dir, ignore_errors=True)
+    print(f"[fleet] b. fleet_sweep, {CAMP_SEEDS} seeds x 1,024 nodes x "
+          f"{FLEET_STEPS} steps in {n_chunks} chunks of {CAMP_CHUNK}: "
+          f"wall {wall_b:.3f} s "
+          f"({CAMP_SEEDS * 1024 * FLEET_STEPS / wall_b:.0f} node-steps/s)"
+          f", {_profile_line(prof, n_chunks * FLEET_STEPS, 'chunk step')}"
+          f", peak {peak_b:.4f} GiB; rows {list(CAMP_ROWS)} against "
+          f"simulate_fleet within rtol 1e-6, bit-equal: {all(bit)}; "
+          f"durable child SIGKILLed after {CAMP_KILL} commits "
+          f"({w_child:.1f} s, start-up included), resume_campaign in "
+          f"{w_resume:.3f} s, every trace bit-equal to the plain campaign")
+    del camp, res
+
+    # ---- c. the control plane under load --------------------------------
+    rates = {}
+    for n in PLANE_COUNTS:
+        plane = make_plane(n, dev)
+        drive_plane(plane, 1)  # warm
+        _, wall, peak = _measured(dev, lambda: drive_plane(plane,
+                                                           PLANE_TICKS))
+        prof = device_breakdown(lambda: drive_plane(plane, 1),
+                                f"plane {n}", host_ops=False, quiet=True)
+        rates[n] = PLANE_TICKS / wall
+        print(f"[plane] c. {n} tenants (plane_load mix), {PLANE_TICKS} "
+              f"ticks: {rates[n]:.2f} ticks/s, {rates[n] * n:.0f} "
+              f"tenant-ticks/s ({1e3 * wall / PLANE_TICKS:.3f} ms a tick, "
+              f"host store, row copies and merge included), "
+              f"{_profile_line(prof, 1, 'tick')}, peak {peak:.4f} GiB")
+    # chunked == unchunked on the 100k plane's state
+    twin = ControlPlane.restore(plane.snapshot(), device=dev)
+    a = drive_plane(plane, 2, chunk_size=PLANE_CHUNK)
+    b = drive_plane(twin, 2)
+    for da, db in zip(a, b):
+        for k in da:
+            check(np.array_equal(da[k], db[k]),
+                  f"chunked plane tick {k} != unchunked")
+    # one blacked-out guarded tenant among 10k
+    planes = []
+    for _ in range(2):
+        p = make_plane(10_000, dev)
+        p.add_tenant("sick", guard=GuardConfig(hold_k=2, failsafe_k=5))
+        planes.append(p)
+    healthy, chaos = planes
+    sick = chaos.slot("sick")
+    others = np.arange(chaos.capacity) != sick
+    for k in range(12):
+        dh = drive_plane(healthy, 1)[0]
+        dc = drive_plane(chaos, 1, skip=(sick,) if k >= 3 else ())[0]
+        for key in ("pcap", "applied", "progress", "phase_change"):
+            check(np.array_equal(dh[key][others], dc[key][others]),
+                  f"quarantine tick {k}: other tenants' {key} moved")
+    check(chaos.quarantined() == ["sick"] and healthy.quarantined() == [],
+          f"quarantine lists {chaos.quarantined()} "
+          f"{healthy.quarantined()}")
+    # a snapshot restored in a fresh process makes the same decisions
+    snap_dir = ROOT / "build" / "plane_snapshot"
+    snap_dir.mkdir(parents=True, exist_ok=True)
+    with open(snap_dir / "plane.pkl", "wb") as fh:
+        pickle.dump(healthy.snapshot(), fh)
+    code = (f"import sys, pickle\nimport numpy as np\n"
+            f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import chip_smoke\n"
+            "from repro_torch.core.plane import ControlPlane\n"
+            f"plane = ControlPlane.restore(pickle.load(open("
+            f"{str(snap_dir / 'plane.pkl')!r}, 'rb')))\n"
+            "out = chip_smoke.drive_plane(plane, 3)\n"
+            "np.save(sys.argv[1], "
+            "np.stack([d['applied'] for d in out]))\n")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", code,
+                            str(snap_dir / "resumed.npy")],
+                           capture_output=True, text=True, timeout=600)
+    w_snap = time.perf_counter() - t0
+    check(child.returncode == 0, f"snapshot child: {child.stderr[-2000:]}")
+    expect = np.stack([d["applied"] for d in drive_plane(healthy, 3)])
+    check(np.array_equal(np.load(snap_dir / "resumed.npy"), expect),
+          "restored plane's decisions differ")
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    print(f"[plane] c. gates: a 100k-tenant tick in chunks of "
+          f"{PLANE_CHUNK} bit-equal to one chunk (2 ticks); one "
+          f"blacked-out "
+          f"guarded tenant among 10,001 quarantined, the other tenants "
+          f"bit-identical to the healthy plane over 12 ticks; a snapshot "
+          f"restored in a fresh process ({w_snap:.1f} s) made the same 3 "
+          f"ticks of decisions")
+    del plane, twin, planes, healthy, chaos
+
+    # ---- d. serve --power --plane --obs-port 0 --------------------------
+    scrapes, errors, up = {}, [], threading.Event()
+    stop = threading.Event()
+    url = []
+
+    def scraper():
+        up.wait(600)
+        get = lambda path: urllib.request.urlopen(
+            url[0] + path, timeout=30).read().decode()
+        while not stop.is_set():
+            try:
+                for path in ("/healthz", "/metrics", "/metrics.json",
+                             "/events?log=plane"):
+                    body = get(path)
+                    if path != "/events?log=plane" or body:
+                        scrapes.setdefault(path, []).append(body)
+            except Exception as e:  # recorded, then checked below
+                errors.append(repr(e))
+                return
+            time.sleep(0.05)
+
+    th = threading.Thread(target=scraper, daemon=True)
+    th.start()
+    FK.LAUNCHES, DK.LAUNCHES = 0, 0
+
+    def on_obs(srv):
+        url.append(srv.url)
+        up.set()
+        stop_server = srv.stop
+
+        def stop_after_scraper():
+            # the scraper ends before the server does: a scrape cut by
+            # the shutdown is not an error of the endpoint
+            stop.set()
+            th.join(timeout=60)
+            stop_server()
+
+        srv.stop = stop_after_scraper
+
+    holder = {}
+
+    def served():
+        holder["res"] = serve.main(SERVE_ARGV + ["--power", "--plane",
+                                                 "--obs-port", "0"],
+                                   on_obs=on_obs)
+
+    def profiled():
+        holder["prof"] = device_breakdown(served, "serve --power --plane",
+                                          host_ops=False, quiet=True)
+
+    _, wall_d, peak_d = _measured(dev, profiled)
+    res = holder["res"]
+    L, GEN, B = 36, 32, 8
+    check(FK.LAUNCHES == L and DK.LAUNCHES == L * GEN,
+          f"serve --plane launches flash {FK.LAUNCHES}, decode "
+          f"{DK.LAUNCHES}")
+    check(np.array_equal(res["generated"], serve7["generated"]),
+          "serve --power --plane tokens differ from phase 7's")
+    check(res["plane_wall_s"] is not None and res["energy_j"] > 0,
+          f"serve --plane accounting {res}")
+    check(not errors, f"scrape errors {errors}")
+    check(all(scrapes.get(p) for p in ("/healthz", "/metrics",
+                                       "/metrics.json",
+                                       "/events?log=plane")),
+          f"scrapes {sorted((k, len(v)) for k, v in scrapes.items())}")
+    scr = ROOT / "build" / "scrapes"
+    scr.mkdir(parents=True, exist_ok=True)
+    for i, (m, j) in enumerate(zip(scrapes["/metrics"],
+                                   scrapes["/metrics.json"])):
+        (scr / f"m{i}.txt").write_text(m)
+        (scr / f"m{i}.json").write_text(j)
+        with contextlib.redirect_stdout(None):
+            rc = validate.main(["--prom", str(scr / f"m{i}.txt"),
+                                "--metrics", str(scr / f"m{i}.json")])
+        check(rc == 0, f"scrape {i} fails obs.validate")
+    rows = [json.loads(ln) for body in scrapes["/events?log=plane"]
+            for ln in body.splitlines()]
+    check(rows and all(r["log"] == "plane" for r in rows)
+          and any(r["name"] == "tenant_added" for r in rows),
+          f"plane events {rows[:3]}")
+    health = json.loads(scrapes["/healthz"][-1])
+    check(health["status"] == "ok", f"healthz {health}")
+    shutil.rmtree(scr, ignore_errors=True)
+    reg = obs_metrics.get_registry()
+    ticks = reg.counter("plane_ticks_total", "").value()
+    prof = holder.get("prof")
+    tps = lambda r: GEN * B / r["wall_s"]
+    print(f"[serve] d. serve --power --plane --obs-port 0, qwen3-8b full "
+          f"width, batch {B}, prompt 1024, {GEN} tokens: main() "
+          f"{wall_d:.1f} s under the device-activity profiler; tokens "
+          f"equal"
+          f" phase 7's; decode loop {res['wall_s']} s ({tps(res):.1f} "
+          f"tok/s) beside phase 14 (f)'s --power {serve14['wall_s']} s "
+          f"({tps(serve14):.1f} tok/s) and phase 7's plain decode "
+          f"{serve7['wall_s']} s ({tps(serve7):.1f} tok/s); the plane's "
+          f"host time {res['plane_wall_s']} s, "
+          f"{1e3 * res['plane_wall_s'] / (GEN - 1):.2f} ms a decode step "
+          f"(the NRM's in phase 14 (f): {serve14['nrm_wall_s']} s); "
+          f"{len(scrapes['/metrics'])} scrape rounds of /healthz, "
+          f"/metrics, /metrics.json and /events?log=plane from a thread "
+          f"during the call, every payload valid (obs.validate), "
+          f"{len(rows)} plane event rows; final cap {res['final_pcap']} W,"
+          f" energy {res['energy_j']} J; launches flash {L}, decode "
+          f"{L * GEN}; " + _idle(prof, "whole call's device idle")
+          + f"; peak {peak_d:.3f} GiB; plane_ticks_total {ticks:.0f}")
+
+    # ---- e. the regression gate on the card -----------------------------
+    bench = ROOT / "BENCH_sim.json"
+    data = json.loads(bench.read_text())
+    (card, w_card, peak_e) = _measured(dev, lambda: regress.assess(data))
+    host = regress.assess(data, device="cpu")
+    check(json.dumps(card, sort_keys=True) == json.dumps(host,
+                                                         sort_keys=True),
+          "regress report on the card differs from the CPU's")
+    with contextlib.redirect_stdout(None):
+        rc_card = regress.main([str(bench)])
+        rc_host = regress.main([str(bench), "--device", "cpu"])
+    check(rc_card == rc_host, f"regress exit {rc_card} on the card, "
+          f"{rc_host} on the CPU")
+    prof = device_breakdown(lambda: regress.assess(data), "regress",
+                            host_ops=False, quiet=True)
+    print(f"[obs] e. regress over BENCH_sim.json on the card: "
+          f"{card['n_series']} series analysed, {len(card['skipped'])} "
+          f"skipped (short), {card['n_changes']} change point(s), exit "
+          f"{rc_card}; the same report and exit code as on the CPU; wall "
+          f"{1e3 * w_card:.2f} ms, "
+          + (f"{prof['launches']} launches, " if prof else "")
+          + _idle(prof, "device idle") + f", peak {peak_e:.5f} GiB")
+    print(f"[fleet] phase 15 in {time.perf_counter() - started:.1f} s; "
           f"on {smi}")
 
 
@@ -2815,8 +3283,9 @@ def main() -> int:
     policies_phase(dev, main_grid, main_kw, main_out, main_summary,
                    smi)                                   # phase 12
     scenarios_phase(dev, main_grid, main_kw, smi)         # phase 13
-    runtime_phase(dev, main_grid, main_kw, main_out, main_summary, serve7,
-                  smi)                                    # phase 14
+    serve14 = runtime_phase(dev, main_grid, main_kw, main_out,
+                            main_summary, serve7, smi)    # phase 14
+    fleet_plane_phase(dev, serve7, serve14, smi)          # phase 15
 
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f}"
           f" s, the kernels' build included")

@@ -12,8 +12,10 @@ arrays), `carry_from_reference` for the scan engine's per-run state
 `rows_from_reference` (alias `policy_values_from_reference`) for packed
 rows (policy values, detector rows, the guard vector, recorder rings),
 `schedule_from_reference` and `faults_from_reference` for packed
-schedules and fault rows, and `static_fit_from_reference` for an
-identified static characteristic. Nothing here imports the
+schedules and fault rows, `static_fit_from_reference` for an
+identified static characteristic, `plane_snapshot_from_reference` for a
+whole control plane's `PlaneSnapshot`, and `fleet_args_from_reference`
+for a fleet's packed per-node rows. Nothing here imports the
 reference: it only reads arrays through ``np.asarray`` and fields by
 name.
 """
@@ -146,3 +148,47 @@ def static_fit_from_reference(fit):
     from repro_torch.core.identify import StaticFit
     return StaticFit(**{f: float(getattr(fit, f))
                         for f in StaticFit.__dataclass_fields__})
+
+
+def plane_snapshot_from_reference(snap):
+    """The reference's `repro.core.plane.PlaneSnapshot` (numpy rows and
+    host metadata) -> the port's `PlaneSnapshot`, field by field: float32
+    rows, a bool ``alive`` mask, the heartbeat store's float64 / int64
+    buffers, the event log's state as it is. A fingerprinted snapshot gets
+    the port's fingerprint of the carried rows (the reference hashes its
+    tree through its own executor's digest); `ControlPlane.restore` then
+    checks it and the rows' finiteness."""
+    from repro_torch.core.plane import PlaneSnapshot
+    f32 = lambda x: None if x is None else np.array(np.asarray(x),
+                                                    np.float32)
+    store = {k: (np.array(np.asarray(v)) if isinstance(v, np.ndarray)
+                 else v) for k, v in snap.store_state.items()}
+    out = PlaneSnapshot(
+        capacity=int(snap.capacity), n_tenants=int(snap.n_tenants),
+        t=float(snap.t), dt=float(snap.dt), branches=tuple(snap.branches),
+        slots=dict(snap.slots), free=[int(i) for i in snap.free],
+        gains=f32(snap.gains), pvals=f32(snap.pvals),
+        pstate=f32(snap.pstate), det_vals=f32(snap.det_vals),
+        det_state=f32(snap.det_state), det_on=f32(snap.det_on),
+        pcap=f32(snap.pcap), alive=np.array(np.asarray(snap.alive), bool),
+        store_state=store, max_beats=int(snap.max_beats),
+        guard_vals=f32(snap.guard_vals), guard_state=f32(snap.guard_state),
+        guard_on=f32(snap.guard_on),
+        events=None if snap.events is None else dict(snap.events))
+    if snap.fingerprint:
+        out.fingerprint = out.digest()
+    return out
+
+
+def fleet_args_from_reference(args, device: Union[None, str,
+                                                  torch.device] = None):
+    """The reference fleet's packed per-node rows
+    (`repro.core.hierarchy._fleet_args`' last item: profile rows, gain
+    rows, policy rows, class ids, per-node `ScheduleValues` or None) ->
+    the port's ``(pv, gv, av, cls, sv)`` on ``device``, the rows
+    `repro_torch.core.hierarchy._fleet_core` takes."""
+    pv, gv, av, cls, sv = args
+    dev = resolve_device(device)
+    return (_tensor(pv, dev), _tensor(gv, dev), _tensor(av, dev),
+            torch.from_numpy(np.asarray(cls).astype(np.int64)).to(dev),
+            None if sv is None else schedule_from_reference(sv, dev))

@@ -561,11 +561,16 @@ class NRM:
         return evt.decode_ring(self._event_state)
 
     def serve(self, port: int = 0, host: str = "127.0.0.1"):
-        """The reference's scrape endpoint over this NRM waits for the
-        observability services."""
-        raise NotImplementedError(
-            "NRM.serve needs the observability services' port "
-            "(repro_torch.obs.serve): ROADMAP Queue 1 item 8")
+        """Start a `repro_torch.obs.serve.ObsServer` (daemon thread)
+        exposing this NRM mid-run: ``/events?log=nrm`` tails the host
+        decision log, ``/events?log=flight`` the decoded in-scan flight
+        recorder (refreshed per request), ``/metrics`` the process
+        registry a `run_simulated` loop publishes into. Returns the
+        running server (``.url``, ``.stop()``)."""
+        from repro_torch.obs import serve as obs_serve
+        return obs_serve.start_server(
+            port=port, host=host,
+            event_sources={"nrm": self.events, "flight": self.flight_events})
 
     def _run_simulated_python(self, total_work: float,
                               max_time: float = 3600.0,

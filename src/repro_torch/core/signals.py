@@ -335,17 +335,20 @@ class HeartbeatAggregator:
 
 
 def median(x: torch.Tensor) -> torch.Tensor:
-    """Median of a 1-D float tensor, the two middle values averaged for an
-    even length (``(lo + hi) * 0.5``, as ``jnp.median`` computes it;
-    `torch.median` would return the lower one). NaN if ``x`` is empty or
-    holds a NaN."""
-    n = x.shape[0]
+    """Median over the last axis of a float tensor (a 1-D tensor gives a
+    0-dim one), the two middle values averaged for an even length
+    (``(lo + hi) * 0.5``, as ``jnp.median`` computes it; `torch.median`
+    would return the lower one). NaN where a row is empty or holds a NaN.
+    The sort is exact, so each row's answer does not depend on the other
+    rows of the batch."""
+    n = x.shape[-1]
     if n == 0:
-        return torch.full((), float("nan"), dtype=x.dtype, device=x.device)
-    s = torch.sort(x).values
-    mid = (s[(n - 1) // 2] + s[n // 2]) * 0.5
-    return torch.where(torch.isnan(x).any(), torch.full_like(mid, np.nan),
-                       mid)
+        return torch.full(x.shape[:-1], float("nan"), dtype=x.dtype,
+                          device=x.device)
+    s = torch.sort(x, dim=-1).values
+    mid = (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
+    return torch.where(torch.isnan(x).any(-1),
+                       torch.full_like(mid, float("nan")), mid)
 
 
 def progress_from_times(beat_times: Union[Sequence[float], torch.Tensor],

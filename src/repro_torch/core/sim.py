@@ -65,8 +65,8 @@ only on its own row, so every layout equals one-shot bit for bit.
 existing plant, controller and scenario state on the scan engine (the
 NRM's delegation path, `repro_torch.core.nrm`).
 
-The fleet's cap limit (``engine_step(cap_limit=)``) raises
-NotImplementedError naming the ROADMAP item that brings it.
+`engine_step(cap_limit=)` clips each run's command to its own limit
+(the fleet's per-node allocation, `repro_torch.core.hierarchy`).
 """
 from __future__ import annotations
 
@@ -104,20 +104,6 @@ from repro_torch.kernels.closed_loop import ref as R
 from repro_torch.kernels.closed_loop.ref import (CAP_BINS, PROG_BINS,
                                                  PROG_HIST_SPAN)
 from repro_torch.obs import events as evt
-
-# ROADMAP items that bring what this path does not cover yet.
-_TODO = {
-    "cap_limit": "Queue 1 item 7b (the fleet)",
-}
-
-
-def _reject(**given) -> None:
-    """Raise for the first argument the port does not cover yet."""
-    for name, value in given.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}= is not ported yet: ROADMAP {_TODO[name]}")
-
 
 def _check_backend(backend: str) -> None:
     if backend not in ("auto", "kernel", "scan"):
@@ -486,11 +472,12 @@ def engine_step(profile: PlantProfile, gains: PIGains, c: _Carry,
       FAILSAFE / recover and recovery resets, all gated on the live mask.
 
     Faults, guard and recorder need the packed path, as in the
-    reference; ``cap_limit`` raises NotImplementedError naming the
-    ROADMAP item that brings it.
+    reference. ``cap_limit`` (a number or (B,) per run) clips the
+    policy's command, ``min(pcap, cap_limit)``, on either path, before the
+    early-exit freeze (`torch.minimum`, which keeps a NaN as
+    ``jnp.minimum`` does): the fleet's per-node budget allocation.
 
     Returns (new_carry, out) where out holds this period's trace row."""
-    _reject(cap_limit=cap_limit)
     branches = pol.as_branches(policy)
     typed = isinstance(c.pol, PIState)
     if (typed or typed_pi) and branches != ("pi",):
@@ -601,6 +588,9 @@ def engine_step(profile: PlantProfile, gains: PIGains, c: _Carry,
             gains, policy, policy_vals, c.pol, c.pcap, prog_obs, power_obs,
             dt, det_vals=detector, det_state=c.det, guard_vals=guard,
             guard_state=c.guard)
+    if cap_limit is not None:
+        pcap = torch.minimum(pcap, torch.as_tensor(
+            cap_limit, dtype=pcap.dtype, device=pcap.device))
 
     # early-exit-by-mask: freeze everything once done
     frz = lambda new, old: torch.where(c.done, old, new)

@@ -1,6 +1,5 @@
 """Durable campaign supervisor: crash-safe, self-healing sweeps; port of
-`repro.core.supervisor` (without the HTTP push sink, ROADMAP Queue 1
-item 8).
+`repro.core.supervisor`.
 
 `repro_torch.core.executor.run_grid` makes huge grids bounded (chunking,
 sharding, resumable `ExecState`); this layer makes them durable. A
@@ -54,8 +53,9 @@ are never re-delivered (at-least-once overall: a crash between delivery
 and commit re-delivers that one chunk; the consume wrapper dedupes within
 a process).
 
-Entry points: `sim.sweep(..., durable=dir)` and
-`policies.offline_rl.harvest_dataset(..., durable=dir)` save a pickled
+Entry points: `sim.sweep(..., durable=dir)`,
+`policies.offline_rl.harvest_dataset(..., durable=dir)` and
+`hierarchy.fleet_sweep(..., durable=dir)` save a pickled
 campaign spec into the directory (devices as strings, never a
 `torch.device` bound to a context); `resume_campaign(dir)` re-dispatches
 it and returns the finished result. A child process that runs a
@@ -621,7 +621,8 @@ def save_campaign_spec(dir, entry: str, kwargs: Dict[str, Any]) -> None:
 def resume_campaign(dir):
     """Reopen a campaign directory after a crash (or completion) and drive
     it to the finished result. Dispatches on the saved spec: ``sweep`` ->
-    `SweepResult`, ``harvest_dataset`` -> transition arrays. Uncommitted
+    `SweepResult`, ``harvest_dataset`` -> transition arrays,
+    ``fleet_sweep`` -> the fleet's traces dict. Uncommitted
     chunks are replayed; the result is bit for bit the uninterrupted
     run's."""
     p = Path(dir) / SPEC_NAME
@@ -639,7 +640,6 @@ def resume_campaign(dir):
         from repro_torch.core.policies import offline_rl
         return offline_rl.harvest_dataset(durable=dir, **kwargs)
     if entry == "fleet_sweep":
-        raise NotImplementedError("fleet_sweep campaigns are not ported "
-                                  "yet: ROADMAP Queue 1 item 7b (the "
-                                  "fleet)")
+        from repro_torch.core import hierarchy
+        return hierarchy.fleet_sweep(durable=dir, **kwargs)
     raise ValueError(f"unknown campaign entry {entry!r}")

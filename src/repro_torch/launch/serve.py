@@ -21,15 +21,21 @@ the first (warm-up) decode step the loop beats into an `NRM`
 runs `control_step` once per ``sampling_period`` (0.05 s) of simulated
 time and reports the simulated energy and time; the generated tokens are
 those of the same call without it (power control changes only the
-accounting). ``--plane`` (the multi-tenant ControlPlane) and
-``--obs-port`` (the observability services) raise NotImplementedError
-naming their ROADMAP items.
+accounting). ``--power --plane`` runs the same control law as tenant
+"serve" of a `ControlPlane` (`repro_torch.core.plane`, ticking on the
+serving device) driving a `SimulatedPowerActuator` at ``dt=0.05``, as a
+multi-model serving host would wire it (``--plane`` alone serves
+plainly). ``--obs-port PORT`` exposes a live scrape endpoint
+(`repro_torch.obs.serve`; 0 binds a free port) for the decode loop:
+``/metrics``, ``/metrics.json``, ``/events`` (the NRM's or the plane's
+decision stream) and ``/healthz``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -37,7 +43,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig, PowerControlConfig
-from repro_torch.core.nrm import NRM
+from repro_torch.core.nrm import NRM, SimulatedPowerActuator
+from repro_torch.core.plane import ControlPlane
+from repro_torch.core.plant import PROFILES
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import init_params
 from repro_torch.models import model as M
@@ -81,18 +89,49 @@ def rehome_cache(cfg: ModelConfig, cache: dict, batch: int, total_len: int
             "pos": int(cache["pos"])}
 
 
+def _calibrated(plant: str, tok_rate: float):
+    """``plant`` with its K_L scaled so that full power gives
+    ``tok_rate`` (the NRM's `calibrate`)."""
+    base = PROFILES[plant]
+    frac_max = base.progress_max / base.K_L
+    return dataclasses.replace(base, K_L=tok_rate / max(frac_max, 1e-9))
+
+
 def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
           seed: int = 0, device: Union[None, str, torch.device] = None,
           quiet: bool = True, power: bool = False, epsilon: float = 0.15,
-          plant: str = "v5e-chip") -> dict:
+          plant: str = "v5e-chip", plane: bool = False,
+          obs_port: Optional[int] = None,
+          on_obs: Optional[Callable] = None) -> dict:
     """Serve ``cfg`` with random weights from ``seed``: prefill a batch of
     ``batch`` random prompts of ``prompt_len`` tokens, then decode ``gen``
     tokens greedily, through the CUDA kernels (``attn_impl="cuda"``,
     ``scan_impl="cuda"``; their plain versions on the CPU). ``power``
-    puts the decode loop under an `NRM` on ``plant`` at ``epsilon`` (see
-    the module docstring). Runs on CUDA unless ``device="cpu"``. Returns
-    `main`'s result dict."""
+    puts the decode loop under an `NRM` on ``plant`` at ``epsilon``, or
+    with ``plane`` under a one-tenant `ControlPlane` (see the module
+    docstring). ``obs_port`` starts a scrape endpoint for the call
+    (``on_obs(server)`` is called once it listens, before the prefill)
+    and stops it at the end. Runs on CUDA unless ``device="cpu"``.
+    Returns `main`'s result dict."""
     dev = resolve_device(device)
+    obs_srv = None
+    if obs_port is not None:
+        from repro_torch.obs import serve as obs_serve
+        obs_srv = obs_serve.start_server(port=obs_port)
+        if not quiet:
+            print(f"obs: serving {obs_srv.url}/metrics")
+        if on_obs is not None:
+            on_obs(obs_srv)
+    try:
+        return _serve(cfg, batch, prompt_len, gen, seed, dev, quiet, power,
+                      epsilon, plant, plane, obs_srv)
+    finally:
+        if obs_srv is not None:
+            obs_srv.stop()
+
+
+def _serve(cfg, batch, prompt_len, gen, seed, dev, quiet, power, epsilon,
+           plant, plane, obs_srv) -> dict:
     total_len = prompt_len + gen
     opts = ApplyOptions(attn_impl="cuda", scan_impl="cuda")
 
@@ -107,9 +146,12 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
 
     nrm = (NRM(PowerControlConfig(epsilon=epsilon, plant_profile=plant,
                                   sampling_period=0.05), device=dev)
-           if power else None)
+           if power and not plane else None)
+    if nrm is not None and obs_srv is not None:
+        obs_srv.add_event_source("nrm", nrm.events)
+    cp = actuator = profile = None
     tokens_out = []
-    sim_time, energy, last_ctrl, nrm_s = 0.0, 0.0, 0.0, 0.0
+    sim_time, energy, last_ctrl, ctrl_s = 0.0, 0.0, 0.0, 0.0
     next_tok = torch.argmax(logits, dim=-1)[:, None]
     t0 = time.time()
     for i in range(gen):
@@ -124,50 +166,75 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
         next_tok = torch.argmax(logits, dim=-1)[:, None]
         tokens_out.append(next_tok.cpu().numpy())  # waits for the step
         dt_real = max(time.time() - t1, 1e-5)
-        if nrm is None:
+        if not power:
             sim_time += dt_real
             continue
         if i == 0:  # the warm-up step (kernel builds, allocator): skipped
             continue
         t2 = time.time()
-        if i == 1:
-            nrm.calibrate(float(batch) / dt_real)
-        profile = nrm.profile
+        if nrm is not None:
+            if i == 1:
+                nrm.calibrate(float(batch) / dt_real)
+            profile, pcap = nrm.profile, nrm.actuator._pcap
+        else:
+            # the decode loop is tenant "serve" of a ControlPlane: the
+            # wiring a multi-model serving host would use, sharing the
+            # NRM's control law through plane_step
+            if i == 1:
+                profile = _calibrated(plant, float(batch) / dt_real)
+                actuator = SimulatedPowerActuator(profile, device=dev)
+                cp = ControlPlane(profile=profile, epsilon=epsilon,
+                                  dt=0.05, device=dev)
+                cp.add_tenant("serve")
+                if obs_srv is not None:
+                    obs_srv.add_event_source("plane", cp.events)
+            pcap = actuator._pcap
         # the step slows by the capped progress fraction: its simulated
         # time and the energy the cap lets it draw
-        frac = float(profile.static_progress(
-            nrm.actuator._pcap)) / profile.progress_max
+        frac = float(profile.static_progress(pcap)) / profile.progress_max
         dt_eff = dt_real / max(frac, 1e-3)
         sim_time += dt_eff
-        energy += float(profile.power_of_pcap(nrm.actuator._pcap)) * dt_eff
-        nrm.heartbeat(work=float(batch), t=sim_time)
-        if sim_time - last_ctrl >= nrm.cfg.sampling_period:
-            nrm.actuator.advance(sim_time - last_ctrl)
-            nrm.control_step(now=sim_time)
-            last_ctrl = sim_time
-        nrm_s += time.time() - t2
+        energy += float(profile.power_of_pcap(pcap)) * dt_eff
+        if nrm is not None:
+            nrm.heartbeat(work=float(batch), t=sim_time)
+            if sim_time - last_ctrl >= nrm.cfg.sampling_period:
+                nrm.actuator.advance(sim_time - last_ctrl)
+                nrm.control_step(now=sim_time)
+                last_ctrl = sim_time
+        else:
+            cp.ingest(["serve"], [sim_time], [float(batch)])
+            if sim_time - last_ctrl >= cp.dt:
+                actuator.advance(sim_time - last_ctrl)
+                dec = cp.tick(now=sim_time)
+                actuator.set_pcap(float(dec["applied"][cp.slot("serve")]))
+                last_ctrl = sim_time
+        ctrl_s += time.time() - t2
 
     toks = gen * batch
+    act = nrm.actuator if nrm is not None else actuator
     result = {
         "tokens": toks,
         "wall_s": round(time.time() - t0, 3),
         "sim_time_s": round(sim_time, 3),
         "tok_per_s_sim": round(toks / max(sim_time, 1e-9), 2),
         "energy_j": round(energy, 1),
-        "final_pcap": (round(nrm.actuator._pcap, 1) if nrm is not None
-                       else None),
-        # host time the NRM took inside the decode loop (--power only)
-        "nrm_wall_s": None if nrm is None else round(nrm_s, 4),
+        "final_pcap": round(act._pcap, 1) if act is not None else None,
+        # host time the controller (the NRM, or the plane's ticks) took
+        # inside the decode loop (--power only)
+        "nrm_wall_s": round(ctrl_s, 4) if nrm is not None else None,
+        "plane_wall_s": round(ctrl_s, 4) if cp is not None else None,
         # the greedy tokens, [batch, gen]: one key beyond the reference's
         "generated": np.concatenate(tokens_out, axis=1),
     }
+    if obs_srv is not None:
+        result["obs_url"] = obs_srv.url
     if not quiet:
         print({k: v for k, v in result.items() if k != "generated"})
     return result
 
 
-def main(argv=None, device: Union[None, str, torch.device] = None
-         ) -> dict:
+def main(argv=None, device: Union[None, str, torch.device] = None,
+         on_obs: Optional[Callable] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="qwen3-8b")
     p.add_argument("--reduced", action="store_true")
@@ -179,29 +246,26 @@ def main(argv=None, device: Union[None, str, torch.device] = None
                         "control")
     p.add_argument("--plane", action="store_true",
                    help="route --power through the multi-tenant "
-                        "ControlPlane (not ported yet)")
+                        "ControlPlane (as its single tenant) instead of "
+                        "the in-process NRM: the service wiring, same "
+                        "control law")
     p.add_argument("--epsilon", type=float, default=0.15)
     p.add_argument("--plant", default="v5e-chip")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--obs-port", type=int, default=None,
-                   help="live scrape endpoint (not ported yet)")
+                   help="expose a live scrape endpoint "
+                        "(repro_torch.obs.serve) on this port for the "
+                        "call: /metrics, /metrics.json, /events, "
+                        "/healthz")
     args = p.parse_args(argv)
-
-    if args.plane:
-        raise NotImplementedError(
-            "--plane needs the ControlPlane port: ROADMAP Queue 1 item 7b "
-            "(the fleet and the multi-tenant control plane)")
-    if args.obs_port is not None:
-        raise NotImplementedError(
-            "--obs-port needs the observability services' port: ROADMAP "
-            "Queue 1 item 8")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     return serve(cfg, args.batch, args.prompt_len, args.gen, args.seed,
-                 device, args.quiet, args.power, args.epsilon, args.plant)
+                 device, args.quiet, args.power, args.epsilon, args.plant,
+                 args.plane, args.obs_port, on_obs)
 
 
 if __name__ == "__main__":

@@ -1153,3 +1153,75 @@ def test_serve_power_on_the_card_keeps_the_tokens(dev):
     b = serve.main(argv + ["--power"])
     np.testing.assert_array_equal(a["generated"], b["generated"])
     assert b["final_pcap"] is not None and b["energy_j"] > 0
+
+
+def test_fleet_on_the_card_is_chunk_invariant(dev):
+    """A budgeted three-class fleet campaign on the card: every chunking
+    of the seeds gives the one-shot rows (rtol 1e-6; the node axis sums
+    by pairwise halving and the median by an exact sort, so they are
+    expected bit-equal), and a row equals `simulate_fleet` of its seed."""
+    from repro_torch.core.hierarchy import (FleetConfig, fleet_sweep,
+                                            simulate_fleet)
+    from repro_torch.core.plant import PROFILES
+    from repro_torch.core.policies import DutyCyclePolicy, PIPolicy
+    profs = [PROFILES[p] for p in ("gros", "dahu", "yeti")]
+    peak = sum(float(p.power_of_pcap(p.pcap_max)) for p in profs) * 32
+    fc = FleetConfig(n_nodes=96, power_budget=0.6 * peak)
+    kw = dict(policies=[PIPolicy(), DutyCyclePolicy(), PIPolicy()])
+    one = fleet_sweep(profs, fc, 30, range(6), **kw)
+    for chunk in (1, 4):
+        ch = fleet_sweep(profs, fc, 30, range(6), chunk_size=chunk, **kw)
+        for k in one:
+            np.testing.assert_allclose(ch[k], one[k], rtol=1e-6,
+                                       err_msg=f"chunk {chunk} {k}")
+    solo = simulate_fleet(profs, fc, 30, seed=4, **kw)
+    for k in ("power", "progress_med", "energy_total", "alloc_class"):
+        np.testing.assert_allclose(one[k][4], solo[k], rtol=1e-6,
+                                   err_msg=k)
+    assert np.isfinite(one["power"]).all()
+
+
+def test_plane_tick_on_the_card_equals_the_cpu(dev):
+    """The same mixed plane on the card and on the CPU for 12 ticks, each
+    tick from the same state rows (the card plane takes the CPU plane's
+    after each tick): the same progress (host numpy), alarms and guard
+    modes; PI rows within 2 ulps (Eq. 2's float32 exp and log: CUDA's
+    `expf` / `logf` and the CPU's vectorized ones are each within an ulp
+    or two of the exact value, not always on the same side), the other
+    branches within rtol 1e-5 (their multiply-adds contract into FMAs on
+    the card)."""
+    from repro_torch.core.adaptive import RLSConfig
+    from repro_torch.core.plane import ControlPlane
+    from repro_torch.core.policies import DutyCyclePolicy, PIPolicy
+    from repro_torch.core.workloads import DetectorConfig
+    planes = [ControlPlane(profile="gros", dt=1.0, device=d)
+              for d in ("cuda", "cpu")]
+    for p in planes:
+        p.add_tenants(8, ids=[f"pi{i}" for i in range(8)])
+        p.add_tenants(3, ids=["r0", "r1", "r2"],
+                      policy=PIPolicy(adaptive=RLSConfig()))
+        p.add_tenants(3, ids=["d0", "d1", "d2"], policy=DutyCyclePolicy())
+        p.add_tenants(2, ids=["x0", "x1"], detector=DetectorConfig(),
+                      guard=True)
+    rng = np.random.default_rng(0)
+    for k in range(12):
+        t = planes[0]._t + 1.0
+        ids, times = [], []
+        for i, tid in enumerate(planes[0]._slots):
+            n = int(rng.poisson(15.0 + i))
+            ids += [tid] * n
+            times += [t - 1.0 + (j + 0.5) / max(n, 1) for j in range(n)]
+        for p in planes:
+            p.ingest(ids, times)
+        a, b = (p.tick() for p in planes)
+        for key in ("progress", "phase_change", "guard_mode"):
+            np.testing.assert_array_equal(a[key], b[key])
+        for tid, s in planes[0]._slots.items():
+            if tid.startswith("pi"):
+                x, y = a["applied"][s], b["applied"][s]
+                assert abs(x - y) <= 2 * np.spacing(max(x, y)), (k, tid)
+            else:
+                np.testing.assert_allclose(a["applied"][s],
+                                           b["applied"][s], rtol=1e-5)
+        for f in ("_pstate", "_dstate", "_gstate", "_pcap"):
+            getattr(planes[0], f)[:] = getattr(planes[1], f)

@@ -1,8 +1,8 @@
 """The port's execution layer (`repro_torch.core.executor`, `sim.sweep`'s
 ``chunk_size=`` / ``devices=`` / ``consume=``, `sim.sweep_resumable`,
 `offline_rl.harvest_dataset`) on the CPU: twins of the reference's
-`tests/test_executor.py` (its two fleet tests go with ROADMAP Queue 1
-item 7b).
+`tests/test_executor.py` (its fleet test is mirrored in
+`tests/test_torch_hierarchy.py`).
 
 The property everywhere: every run's parameters and random streams ride
 in its own row of the flattened grid, so ANY execution layout (one shot,

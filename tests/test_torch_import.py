@@ -37,7 +37,9 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.core.workloads.schedule, "
             "repro_torch.core.workloads.detect, repro_torch.obs.events, "
             "repro_torch.core.executor, repro_torch.core.supervisor, "
-            "repro_torch.core.nrm, repro_torch.obs.sink\n"
+            "repro_torch.core.nrm, repro_torch.obs.sink, "
+            "repro_torch.core.hierarchy, repro_torch.obs.serve, "
+            "repro_torch.obs.validate, repro_torch.obs.regress\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -186,6 +188,28 @@ def test_runtime_entry_points_refuse_to_run_without_cuda(tmp_path):
                                     chunk_size=2, stop_after=1),
         lambda: harvest_dataset("gros", [0.1], range(2), total_work=10.0,
                                 max_time=64.0)]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_fleet_plane_and_services_refuse_to_run_without_cuda():
+    """The fleet, the control plane and the regression gate run on CUDA by
+    default, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    from repro_torch.core.hierarchy import (FleetConfig, fleet_sweep,
+                                            simulate_fleet)
+    from repro_torch.core.plane import ControlPlane
+    from repro_torch.core.plant import PROFILES
+    from repro_torch.obs import regress
+    fc = FleetConfig(n_nodes=4)
+    makers = [lambda: simulate_fleet(PROFILES["gros"], fc, 4),
+              lambda: fleet_sweep(PROFILES["gros"], fc, 4, [0, 1]),
+              lambda: ControlPlane(),
+              lambda: regress.main([str(ROOT / "BENCH_sim.json")]),
+              lambda: regress.assess({"history": [
+                  {"rev": str(i), "x": 1.0} for i in range(6)]})]
     for make in makers:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

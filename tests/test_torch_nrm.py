@@ -520,9 +520,25 @@ def test_faulty_actuator_counts_injections():
     assert inner._pcap == 55.0
 
 
-def test_nrm_serve_waits_for_the_observability_services():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        _nrm().serve()
+def test_nrm_serve_attaches_its_event_streams():
+    """`NRM.serve` exposes the NRM's decision log (``/events?log=nrm``)
+    and its flight recorder (``log=flight``, empty before a
+    record_events= run) beside ``/healthz``."""
+    import json
+    import urllib.request
+    get = lambda u: urllib.request.urlopen(u, timeout=10).read().decode()
+    nrm = _nrm()
+    nrm.events.append(1.0, evt.EV_DETECTOR_ALARM, evt.SRC_NRM, (1.0, 2.0))
+    srv = nrm.serve()
+    try:
+        assert json.loads(get(srv.url + "/healthz"))["status"] == "ok"
+        rows = [json.loads(ln) for ln in
+                get(srv.url + "/events?log=nrm").splitlines()]
+        assert [r["log"] for r in rows] == ["nrm"]
+        assert rows[0]["name"] == "detector_alarm"
+        assert get(srv.url + "/events?log=flight") == ""
+    finally:
+        srv.stop()
 
 
 def test_policy_with_adaptive_config_is_rejected():

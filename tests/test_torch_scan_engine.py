@@ -160,34 +160,70 @@ _FV = _one_run(FaultSchedule().resolve(device="cpu"))
 _GV = guard_values(device="cpu")
 
 
-@pytest.mark.parametrize("kwargs,error", [
-    (dict(policy=("pi", "dutycycle"), policy_vals=torch.zeros(1, 10),
-          detector=_DV, cap_limit=100.0), NotImplementedError),
-    (dict(policy=("pi_rls",), policy_vals=torch.zeros(1, 10),
-          faults=_FV, fault_u=torch.zeros(1), cap_limit=90.0),
-     NotImplementedError),
-    (dict(policy=("pi", "dutycycle"), typed_pi=True), ValueError),
-    (dict(cap_limit=100.0), NotImplementedError),
-    (dict(schedule=_SV, cap_limit=100.0), NotImplementedError),
-    (dict(faults=_FV, fault_u=torch.zeros(1)), ValueError),
-    (dict(guard=_GV), ValueError),
-    (dict(guard=_GV, cap_limit=1.0), NotImplementedError)])
-def test_engine_step_rejects_what_is_not_ported(kwargs, error):
-    """What later slices bring (the fleet's ``cap_limit``) raises
-    NotImplementedError naming its ROADMAP item, on the typed and the
-    packed path, with the scenario inputs too; the typed fast path refuses
-    a branch set other than ("pi",), faults and the guard, as the
-    reference does."""
+@pytest.mark.parametrize("kwargs", [
+    dict(policy=("pi", "dutycycle"), typed_pi=True),
+    dict(faults=_FV, fault_u=torch.zeros(1)),
+    dict(guard=_GV)])
+def test_engine_step_rejects_what_is_not_ported(kwargs):
+    """The typed fast path refuses a branch set other than ("pi",), faults
+    and the guard, as the reference does (the fleet's ``cap_limit`` runs:
+    `test_engine_step_cap_limit_clips`)."""
     prof = sim._unpack_profile(sim.profile_values(PROFILES["gros"])[None])
     gains = plane.unpack_gains(sim.gains_values(
         sim.PIGains.from_model(PROFILES["gros"], 0.1))[None])
     c = sim._default_init(prof, gains, kwargs.get("policy", ("pi",)),
                           kwargs.get("policy_vals"))
-    match = "ROADMAP Queue 1 item" if error is NotImplementedError \
-        else "typed_pi"
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="typed_pi"):
         sim.engine_step(prof, gains, c, 1e9, 64.0, 1.0, torch.zeros(4, 1),
                         lambda lam: lam.to(torch.int32), **kwargs)
+
+
+_RLS = "rls"  # stands for PIPolicy(adaptive=RLSConfig())'s values
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(policy=("pi", "dutycycle"), policy_vals=torch.zeros(1, 10),
+         detector=_DV, cap_limit=100.0),
+    dict(policy=("pi_rls",), policy_vals=_RLS, faults=_FV,
+         fault_u=torch.zeros(1), cap_limit=90.0),
+    dict(cap_limit=100.0),
+    dict(schedule=_SV, cap_limit=100.0),
+    dict(policy=("pi",), policy_vals=torch.zeros(1, 10), guard=_GV,
+         cap_limit=70.0)],
+    ids=["packed-detector", "packed-faults", "typed", "typed-schedule",
+         "packed-guard"])
+def test_engine_step_cap_limit_clips(kwargs):
+    """``cap_limit`` runs on the typed and the packed path, with the
+    scenario inputs too, and the command it leaves is min(command,
+    limit): two beats a period sit far below the setpoint, so the same
+    step without the limit commands more than the limit, and the limited
+    one commands the limit (a NaN limit gives NaN, as ``jnp.minimum``
+    does)."""
+    from repro_torch.core import policies as pol
+    from repro_torch.core.adaptive import RLSConfig
+    kw = dict(kwargs)
+    lim = kw.pop("cap_limit")
+    g0 = sim.PIGains.from_model(PROFILES["gros"], 0.1)
+    prof = sim._unpack_profile(sim.profile_values(PROFILES["gros"])[None])
+    gains = plane.unpack_gains(sim.gains_values(g0)[None])
+    if kw.get("policy_vals") is _RLS:
+        kw["policy_vals"] = pol.policy_values(pol.PIPolicy(
+            adaptive=RLSConfig()), PROFILES["gros"], g0)[None]
+    init = {name: kw[arg] for arg, name in (
+        ("detector", "det_vals"), ("faults", "faults"), ("guard", "guard"),
+        ("schedule", "schedule")) if arg in kw}
+    c = sim._default_init(prof, gains, kw.get("policy", ("pi",)),
+                          kw.get("policy_vals"), **init)
+    noise = torch.tensor([[0.0], [0.0], [0.5], [0.5]])  # no drop
+    args = (prof, gains, c, 1e9, 64.0, 1.0, noise,
+            lambda lam: torch.full_like(lam, 2).to(torch.int32))
+    _, free = sim.engine_step(*args, **kw)
+    c2, out = sim.engine_step(*args, cap_limit=lim, **kw)
+    assert float(free["pcap"]) > lim
+    assert float(out["pcap"]) == pytest.approx(lim)
+    assert float(c2.pcap) == pytest.approx(lim)
+    nan = sim.engine_step(*args, cap_limit=float("nan"), **kw)[1]
+    assert np.isnan(float(nan["pcap"]))
 
 
 @pytest.mark.parametrize("dt", [1.0, 0.5])

@@ -117,12 +117,32 @@ def test_serve_is_seeded():
     assert not np.array_equal(a, c)
 
 
-@pytest.mark.parametrize("flags,item", [(["--plane"], "item 7"),
-                                        (["--power", "--plane"], "item 7"),
-                                        (["--obs-port", "0"], "item 8")])
-def test_unported_serve_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        serve.main(["--reduced", "--quiet", *flags], device="cpu")
+@pytest.mark.parametrize("flags", [["--plane"], ["--power", "--plane"],
+                                   ["--obs-port", "0"]],
+                         ids=["plane", "power-plane", "obs-port"])
+def test_plane_and_obs_port_serve_flags_run(flags):
+    """``--plane`` alone serves plainly, ``--power --plane`` runs the
+    decode loop as tenant "serve" of a `ControlPlane`, ``--obs-port 0``
+    serves a scrape endpoint for the call: the generated tokens are the
+    plain call's (control changes only the accounting)."""
+    argv = ["--reduced", "--quiet", "--batch", "2", "--prompt-len", "8",
+            "--gen", "6"]
+    seen = []
+    res = serve.main(argv + flags, device="cpu",
+                     on_obs=lambda srv: seen.append(srv.url))
+    plain = serve.main(argv, device="cpu")
+    np.testing.assert_array_equal(res["generated"], plain["generated"])
+    if "--power" in flags:
+        assert res["plane_wall_s"] is not None and res["nrm_wall_s"] is None
+        assert res["energy_j"] > 0 and res["final_pcap"] is not None
+    if "--obs-port" in flags:
+        assert seen == [res["obs_url"]]
+        import urllib.error
+        import urllib.request
+        with pytest.raises(urllib.error.URLError):  # stopped with the call
+            urllib.request.urlopen(res["obs_url"] + "/healthz", timeout=2)
+    else:
+        assert seen == [] and "obs_url" not in res
 
 
 def test_serve_refuses_to_run_quietly_on_the_cpu():

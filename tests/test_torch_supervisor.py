@@ -1,7 +1,8 @@
 """The port's durable campaign supervisor (`repro_torch.core.supervisor`)
 and the retry ladder it rides on, on the CPU: twins of the reference's
-`tests/test_supervisor.py` (its three HTTP push-sink tests go with
-ROADMAP Queue 1 item 8, its fleet campaign with item 7b).
+`tests/test_supervisor.py` (its three HTTP push-sink tests are mirrored
+in `tests/test_torch_obs_serve.py`, its fleet campaign in
+`tests/test_torch_hierarchy.py`).
 
 The property, inherited from the executor: every run's parameters and
 random streams ride in its own row, so a campaign that was retried,

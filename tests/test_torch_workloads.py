@@ -19,9 +19,9 @@ Tiers:
 * mirrors of `tests/test_workloads.py` and `tests/test_phases.py` on the
   port's own streams, at the reference's bars. Not mirrored:
   `test_static_path_bit_for_bit_vs_prephases_engine` (the reference
-  fails it) and the two fleet tests (ROADMAP Queue 1 item 7b); the
-  one-compile half of the sweep axis test is a JAX cache property with
-  no PyTorch counterpart. The resume tests (`resume_init(t0=,
+  fails it), the two fleet tests (mirrored in
+  `tests/test_torch_hierarchy.py`) and the one-compile half of the sweep
+  axis test, a JAX cache property with no PyTorch counterpart. The resume tests (`resume_init(t0=,
   det_state=)`) run at the end of this file.
 """
 import dataclasses
