@@ -166,6 +166,25 @@ Phases, each of which fails the run if a check fails:
    BENCH_sim.json on the card, the CPU's report and exit code. Each step
    prints its wall, its launches a step or a tick, the device's idle
    share and its peak memory.
+16. training on the card (`[train]` lines), through the flash kernel's
+   forward and the recompute backward through its plain version: (a)
+   the differentiable flash op at starcoder2-3b's training shape, bf16
+   and float32, its forward at phase 6's bar and dq / dk / dv against
+   the plain route's autograd, the backward's time beside SDPA's; (c)
+   starcoder2-3b widths x 2 layers in float32, the loss and every grad
+   leaf of the kernel path against the plain path, flash launches
+   under remat full / dots / none; (b) starcoder2-3b at full width and
+   depth, `make_train_step` at batch 4 x 2,048 for 6 steps (the first
+   step's loss and grad norm against the plain path, 60 flash launches
+   a step, the loss falling, step wall, tokens/s, peak memory, a
+   profile by part, the step's bound); (d) `launch/train.train` with
+   the NRM in the loop for 12 steps (energy, simulated time, the caps,
+   the NRM's host ms a step); (e) `python -m repro_torch.launch.train
+   --kill-at 10` in a child on the card (exit 17), its checkpoint
+   restored bit for bit with the NRM state round-tripping, and a
+   `--resume` child finishing the run; (f) xlstm-350m at full width:
+   one train step, a served batch, one float32 repeat on the card
+   against the CPU.
 
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
@@ -2955,6 +2974,574 @@ def fleet_plane_phase(dev, serve7, serve14, smi) -> None:
           f"on {smi}")
 
 
+# ---- phase 16: training on the card (loss, remat, the flash op's
+# backward, AdamW, data, checkpoints, launch/train, xLSTM) ------------------
+
+# starcoder2-3b at full width and depth, nothing cut, at batch 4 x 2,048
+# (8,192 tokens a step): 6.4 GB of bf16 params, 6.4 GB of grads, 25.4 GB
+# of fp32 moments, plus activations (the 30 layer inputs under
+# remat="full", the logits, one layer's recompute and its attention
+# backward through the plain version: a few [4, 24, 2,048, 2,048] float32
+# score tensors), about 55 GB at the peak
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "starcoder2-3b", 4, 2048, 6
+# Adam moves every weight by ~lr a step from the first: at 3e-4 (1.5% of
+# the weights' 0.02 scale) the full-width loss fell 11.39 -> 6.00 in one
+# step and then rose to 21.6 (measured on one H100); 3e-5 descends
+TRAIN_LR = 3e-5
+# the first step's loss and pre-clip grad norm, kernel path (flash forward,
+# bf16 probabilities rounded unnormalised) against the plain path
+# (attn_impl "blocked"), the same weights and batch, bf16. Derived as
+# phase 7's bar: bf16's unit roundoff 3.9e-3 a rounding, ~6x that over 30
+# layers of independent roundings in the residual stream; the loss is a
+# mean over 8,192 tokens, whose independent errors average down, so it is
+# held to a quarter of that (1e-2); the grad norm, a product through 30
+# layers, to LOGITS_REL_TOL itself
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GNORM_REL_TOL = LOGITS_REL_TOL
+# (c) starcoder2-3b widths x 2 layers in float32 at batch 2 x 2,048: the
+# SIMT flash kernel against the plain path, summation order only
+F32_LOSS_RTOL, F32_GRAD_REL = 1e-5, 1e-4
+# (d) train --power at full width: 12 steps, a control period shorter
+# than a step's simulated time, so that the NRM acts every step
+POWER_STEPS, POWER_PERIOD = 12, 0.5
+# (e) the kill-and-resume child runs (`tests/test_train_power.py`'s
+# argv), on the card
+KILL_ARGV = ["--arch", "qwen3-8b", "--reduced", "--batch", "2", "--seq",
+             "32", "--power", "--epsilon", "0.1", "--control-period",
+             "0.02", "--quiet", "--checkpoint-every", "4", "--steps", "14"]
+# (f) xlstm-350m at full width: one train step at batch 4 x 512, a served
+# batch of 4 prompts of 512 tokens and XLSTM_GEN decode steps; the
+# float32 cut is one repeat of its 7:1 pattern (8 layers: the pattern's
+# length must divide num_layers, so 2 layers is no config), card
+# against CPU, summation order only
+XLSTM_B, XLSTM_S, XLSTM_GEN = 4, 512, 4
+XLSTM_CUT_REL = 1e-4
+# the bound of a step: 6 N tokens (forward and backward) plus the remat
+# forward, 2 N tokens, at the bf16 tensor rate (attention's own flops
+# come on top)
+TRAIN_FLOPS_PER_PARAM_TOKEN = 8
+
+
+@contextlib.contextmanager
+def annotated_train_step():
+    """Name the flash op's backward and the AdamW update in a profile
+    (`torch.profiler.record_function` around them, for phase 16's
+    breakdown only); yields a one-element list counting the backward's
+    calls."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.launch import steps as S
+
+    calls = [0]
+    bwd, upd = FO._Flash.backward, S.apply_adamw
+
+    def backward(ctx, g):
+        calls[0] += 1
+        with torch.profiler.record_function("phase16:flash backward"):
+            return bwd(ctx, g)
+
+    def adamw(*a, **kw):
+        with torch.profiler.record_function("phase16:AdamW"):
+            return upd(*a, **kw)
+
+    FO._Flash.backward, S.apply_adamw = staticmethod(backward), adamw
+    try:
+        yield calls
+    finally:
+        FO._Flash.backward, S.apply_adamw = staticmethod(bwd), upd
+
+
+def train_breakdown(fn, label: str):
+    """Device time of one call of ``fn`` by part, from `torch.profiler`:
+    kernels launched inside a `phase16:` range go to that range's part,
+    the rest by name (flash forward, GEMMs, other). Returns (parts in ms,
+    wall ms), or None where the profiler gives no device events. A
+    reading, not a check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        parts = {}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CPU or not ev.kernels:
+                continue
+            tag, up = None, ev
+            while up is not None and tag is None:
+                if up.name.startswith("phase16:"):
+                    tag = up.name[len("phase16:"):]
+                up = up.cpu_parent
+            for k in ev.kernels:
+                name = k.name.lower()
+                if name.startswith("phase16:"):
+                    continue  # a range's own span on the device
+                part = tag or (
+                    "flash forward" if "flash_fwd" in name else
+                    "GEMMs" if any(w in name for w in (
+                        "gemm", "cutlass", "xmma", "nvjet", "sm90"))
+                    else "other")
+                parts[part] = parts.get(part, 0.0) + k.duration / 1e3
+        if not parts:
+            print(f"[train] profile of {label}: no device events; not "
+                  f"measured")
+            return None
+        busy = sum(parts.values())
+        print(f"[train] profile of {label}: wall {wall:.1f} ms, device "
+              f"busy {busy:.1f} ms (idle {100 - 100 * busy / wall:.1f}%); "
+              + "; ".join(f"{k} {v:.1f} ms"
+                          for k, v in sorted(parts.items(),
+                                             key=lambda x: -x[1])))
+        return parts, wall
+    except Exception as e:  # a reading only: the phase's checks stand
+        print(f"[train] profile of {label}: not measured "
+              f"({type(e).__name__}: {e})")
+        return None
+
+
+def flash_op_phase(dev) -> dict:
+    """Phase 16 (a): the differentiable flash op at the training shape,
+    bf16 and float32: the forward against `attention_ref` at phase 6's
+    bar, dq/dk/dv against the plain route's autograd on the same (q, k,
+    v, g), and the backward's time beside SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_cases as AC
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    out = {}
+    for case in (AC.FLASH_TRAIN, AC.FLASH_TRAIN_F32):
+        dtype = case[-1]
+        qkv = [x.requires_grad_() for x in AC.flash_inputs(case, dev)]
+        g = torch.randn(qkv[0].shape, generator=torch.Generator(
+        ).manual_seed(5)).to(dev, qkv[0].dtype)
+        before = FK.LAUNCHES
+        o = FO.flash_attention(*qkv, causal=True)
+        check(FK.LAUNCHES == before + 1, f"flash op {case}: no launch")
+        plain = [x.detach().requires_grad_() for x in qkv]
+        o_ref = FR.attention_ref(*plain, causal=True)
+        err = float((o.detach().float() - o_ref.detach().float()).abs().max())
+        check(torch.allclose(o.float(), o_ref.float(),
+                             **AC.tolerance(dtype)),
+              f"flash op {case}: forward max |kernel - plain| {err}")
+        got = torch.autograd.grad(o, qkv, g, retain_graph=True)
+        want = torch.autograd.grad(o_ref, plain, g, retain_graph=True)
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        diffs = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(got, want)]
+        # both recompute through `attention_ref`: equal but for the order
+        # of the GQA reduction into dk and dv
+        check(all(d <= 1e-2 * float(b.float().abs().max())
+                  for d, b in zip(diffs, want)),
+              f"flash op {case}: grads against the plain route {diffs}")
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            o, qkv, g, retain_graph=True), reps=5, warmup=1)
+        qt = [x.detach().transpose(1, 2).contiguous().requires_grad_()
+              for x in qkv]
+        ot = F.scaled_dot_product_attention(*qt, is_causal=True,
+                                            enable_gqa=True)
+        gt = g.transpose(1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            ot, qt, gt, retain_graph=True), reps=5, warmup=1)
+        print(f"[train] flash op {case}: forward max |kernel - plain| "
+              f"{err:.3e} (bar {AC.tolerance(dtype)['atol']}); dq, dk, dv "
+              f"against the plain route's autograd: "
+              + ", ".join(f"d{n} {'bit-equal' if s else f'max diff {d:.3e}'}"
+                          for n, s, d in zip("qkv", same, diffs))
+              + f"; backward (recompute through attention_ref) "
+              f"{bwd_ms:.3f} ms a layer, SDPA's backward {lib_ms:.3f} ms")
+        out[dtype] = {"bwd_ms": bwd_ms, "lib_bwd_ms": lib_ms,
+                      "bit_equal": all(same), "fwd_err": err}
+        del qkv, plain, o, o_ref, got, want, qt, ot
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_f32_cut(dev) -> None:
+    """Phase 16 (c): starcoder2-3b widths x 2 layers in float32, the loss
+    and every grad leaf of the kernel path (the SIMT flash kernel)
+    against the plain path; flash launches a loss + backward by remat."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenIterator, for_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.steps import value_and_grads
+    from repro_torch.models import ApplyOptions, init_params
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg, 2, dev)
+    batch = next(TokenIterator(for_config(cfg, ShapeConfig(
+        "t", "train", TRAIN_S, 2), seed=2), device=dev))
+    res, launches = {}, {}
+    for impl in ("cuda", "blocked"):
+        FK.LAUNCHES = 0
+        FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        res[impl] = value_and_grads(cfg, ApplyOptions(attn_impl=impl),
+                                    params, batch)
+        launches[impl] = FK.LAUNCHES
+        check(impl != "cuda" or FK.ROUTE_LAUNCHES["simt"] == 4,
+              f"float32 flash routes {FK.ROUTE_LAUNCHES}")
+    for remat in ("none", "dots"):
+        FK.LAUNCHES = 0
+        value_and_grads(dataclasses.replace(cfg, remat=remat),
+                        ApplyOptions(attn_impl="cuda"), params, batch)
+        launches[remat] = FK.LAUNCHES
+    (lk, _, gk), (lp, _, gp) = res["cuda"], res["blocked"]
+    l_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    g_errs = [rel_err(a, b) for a, b in zip(gk, gp)]
+    check(l_err <= F32_LOSS_RTOL, f"float32 cut loss {float(lk)} vs "
+          f"{float(lp)}")
+    check(max(g_errs) <= F32_GRAD_REL, f"float32 cut grads rel L2 "
+          f"{max(g_errs)}")
+    check(launches == {"cuda": 4, "blocked": 0, "none": 2, "dots": 4},
+          f"float32 cut flash launches {launches}")
+    print(f"[train] {TRAIN_ARCH} widths x 2 layers, float32, batch 2 x "
+          f"{TRAIN_S}: loss kernel path {float(lk):.6f} vs plain path "
+          f"{float(lp):.6f} (rel {l_err:.2e}, bar {F32_LOSS_RTOL}); worst "
+          f"grad leaf rel L2 {max(g_errs):.2e} over {len(g_errs)} leaves "
+          f"(bar {F32_GRAD_REL}); flash launches a loss + backward: "
+          f"remat full {launches['cuda']}, dots {launches['dots']}, none "
+          f"{launches['none']} (forward + recompute a layer, or forward "
+          f"only) ({time.perf_counter() - t0:.1f} s)")
+    del params, res
+    torch.cuda.empty_cache()
+
+
+def train_full_width(dev, smi) -> dict:
+    """Phase 16 (b): starcoder2-3b at full width and depth, `make_train_step`
+    through the flash kernel under remat="full", bf16 params and fp32
+    moments, TRAIN_STEPS steps on `SyntheticLMDataset`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import TokenIterator, for_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.steps import make_train_step, value_and_grads
+    from repro_torch.models import ApplyOptions, init_params
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import count_params, materialize
+    from repro_torch.optim.adamw import adamw_init_defs, global_norm
+
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat == "full", f"{TRAIN_ARCH} remat {cfg.remat}")
+    defs = M.model_defs(cfg)
+    n_params = count_params(defs)
+    shape = ShapeConfig("train_2k", "train", TRAIN_S, TRAIN_B)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                       total_steps=TRAIN_STEPS)
+    kern = ApplyOptions(attn_impl="cuda", scan_impl="chunked")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, dev)
+    opt = materialize(adamw_init_defs(defs, tcfg.moment_dtype), 0,
+                      torch.float32, dev)
+    it = TokenIterator(for_config(cfg, shape, seed=0), device=dev)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[train] {TRAIN_ARCH} full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.attn.num_heads} heads over "
+          f"{cfg.attn.num_kv_heads} KV heads, hd {cfg.attn.head_dim}, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e9:.3f} B parameters): params "
+          f"and moments {state_gb:.2f} GB made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the first step's loss and grad norm, kernel path against plain path
+    batch = next(TokenIterator(it.ds, device=dev))
+    first = {}
+    for impl in ("cuda", "blocked"):
+        loss, _, grads = value_and_grads(
+            cfg, ApplyOptions(attn_impl=impl), params, batch)
+        first[impl] = (float(loss), float(global_norm(grads)))
+        del grads
+    torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = first["cuda"], first["blocked"]
+    l_err, g_err = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    print(f"[train] step 1 before its update, kernel path vs plain path "
+          f"(attn_impl 'blocked'): loss {lk:.6f} vs {lp:.6f} (rel "
+          f"{l_err:.2e}, bar {TRAIN_LOSS_REL_TOL}); grad norm {gk:.6f} vs "
+          f"{gp:.6f} (rel {g_err:.2e}, bar {TRAIN_GNORM_REL_TOL})")
+    check(l_err <= TRAIN_LOSS_REL_TOL, f"first-step loss rel {l_err}")
+    check(g_err <= TRAIN_GNORM_REL_TOL, f"first-step grad norm rel {g_err}")
+
+    step = make_train_step(cfg, tcfg, kern)
+    losses, walls, per_step, bwd_calls, prof = [], [], [], [], None
+    for i in range(TRAIN_STEPS):
+        batch = next(it)
+        FK.LAUNCHES = 0
+        FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        with annotated_train_step() as calls:
+            if i == TRAIN_STEPS - 1:
+                # the last step under the profiler (not among the walls)
+                got = {}
+                prof = train_breakdown(
+                    lambda: got.update(m=step(params, opt, batch)[2]),
+                    f"step {i + 1}")
+                m = got["m"]
+            else:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                _, _, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        per_step.append(FK.LAUNCHES)
+        bwd_calls.append(calls[0])
+        check(FK.ROUTE_LAUNCHES == {"wgmma": FK.LAUNCHES, "simt": 0},
+              f"training flash routes {FK.ROUTE_LAUNCHES}")
+        check(np.isfinite(losses[-1]) and np.isfinite(float(
+            m["grad_norm"])), f"step {i + 1}: loss or grad norm not finite")
+        if i == 0:
+            check(abs(losses[0] - lk) <= 1e-3 * abs(lk),
+                  f"the step's loss {losses[0]} vs {lk}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L = cfg.num_layers
+    check(per_step == [2 * L] * TRAIN_STEPS, f"flash launches a step "
+          f"{per_step}, expected {2 * L} (forward + recompute a layer)")
+    check(bwd_calls == [L] * TRAIN_STEPS, f"flash backward calls a step "
+          f"{bwd_calls}, expected {L}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    tokens = TRAIN_B * TRAIN_S
+    wall = float(np.mean(walls[1:]))  # the first builds and warms
+    bound_s = TRAIN_FLOPS_PER_PARAM_TOKEN * n_params * tokens / BF16_PER_S
+    print(f"[train] {TRAIN_STEPS} steps at batch {TRAIN_B} x {TRAIN_S} "
+          f"({tokens} tokens a step), remat full, bf16 params, fp32 "
+          f"moments: loss " + " ".join(f"{x:.4f}" for x in losses)
+          + "; step wall " + ", ".join(f"{w:.3f}" for w in walls)
+          + f" s (the first builds and warms; steps 2-{len(walls)} "
+          f"{wall:.3f} s, {tokens / wall:.0f} tokens/s); flash launches a "
+          f"step {per_step[0]} (all tensor-core), flash backward calls a "
+          f"step {bwd_calls[0]}; peak device memory {peak:.2f} GiB; bound "
+          f"{bound_s:.3f} s a step ({TRAIN_FLOPS_PER_PARAM_TOKEN} N tokens "
+          f"= {bound_s * BF16_PER_S:.3g} flop at the bf16 tensor rate), "
+          f"{100 * bound_s / wall:.1f}% of it; {smi}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"wall": wall, "peak": peak, "launches": per_step[0],
+            "tok_s": tokens / wall, "profile": prof}
+
+
+def train_power(dev, full) -> None:
+    """Phase 16 (d): `launch/train.train` on the full-width config with
+    power control: the NRM in the loop."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import train as T
+
+    cfg = get_config(TRAIN_ARCH)
+    FK.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = T.train(cfg, ShapeConfig("train_2k", "train", TRAIN_S, TRAIN_B),
+                  TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                              total_steps=POWER_STEPS),
+                  power=True, control_period=POWER_PERIOD, device=dev)
+    wall = time.perf_counter() - t0
+    n = POWER_STEPS
+    check(FK.LAUNCHES == n * 2 * cfg.num_layers,
+          f"train --power flash launches {FK.LAUNCHES}")
+    check(len(res["pcaps"]) >= n // 2, f"the NRM ran {len(res['pcaps'])} "
+          f"control periods in {n} steps")
+    check(res["energy_j"] > 0 and res["sim_time_s"] > 0
+          and np.isfinite(res["final_loss"]), f"train --power {res}")
+    step_wall = float(np.mean(res["step_wall_s"][1:]))
+    print(f"[train] train(power=True) {TRAIN_ARCH} full width, {n} steps, "
+          f"control period {POWER_PERIOD} s: {wall:.1f} s wall; energy "
+          f"{res['energy_j']:.1f} J over {res['sim_time_s']:.2f} s "
+          f"simulated; caps " + " ".join(f"{c:.1f}" for c in res["pcaps"])
+          + f" W; the NRM's host time "
+          f"{1e3 * res['nrm_wall_s'] / (n - 1):.3f} ms a step; step wall "
+          f"{step_wall:.3f} s (phase 16 (b): {full['wall']:.3f} s); loss "
+          f"{res['first_loss']:.4f} -> {res['final_loss']:.4f}; flash "
+          f"launches {FK.LAUNCHES}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+
+
+def train_kill_resume(dev) -> None:
+    """Phase 16 (e): `python -m repro_torch.launch.train ... --kill-at 10`
+    in a child on the card exits 17; the checkpoint restores bit for bit
+    and its NRM state round-trips; a `--resume` child finishes the run."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import PowerControlConfig
+    from repro_torch.core.nrm import NRM
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import materialize, tree_leaves_with_path
+    from repro_torch.optim.adamw import adamw_init_defs
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="phase16_ckpt_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    argv = [sys.executable, "-m", "repro_torch.launch.train"] + KILL_ARGV \
+        + ["--checkpoint-dir", str(ck)]
+    try:
+        t0 = time.perf_counter()
+        p1 = subprocess.run(argv + ["--kill-at", "10"], cwd=ROOT, env=env,
+                            capture_output=True, text=True, timeout=300)
+        check(p1.returncode == 17, f"the killed child exited "
+              f"{p1.returncode}: {p1.stdout[-2000:]} {p1.stderr[-2000:]}")
+        mgr = CheckpointManager(ck)
+        last = mgr.latest_step()
+        cfg = reduced(get_config("qwen3-8b"))
+        template = {"params": init_params(cfg, 0, dev), "opt": materialize(
+            adamw_init_defs(M.model_defs(cfg)), 0, torch.float32, dev)}
+        tree, extra = mgr.restore(template=template)
+        n_leaves = 0
+        with np.load(ck / f"step_{last:09d}" / "arrays.npz") as z:
+            for key, t in tree_leaves_with_path(tree):
+                check(t.device.type == "cuda", f"{key} restored on "
+                      f"{t.device}")
+                a = t.cpu()
+                a = (a.view(torch.int16).numpy() if a.dtype == torch.bfloat16
+                     else a.numpy())
+                check(a.tobytes() == z[key].tobytes(), f"{key} not "
+                      f"bit-equal to the saved leaf")
+                n_leaves += 1
+        nrm = NRM(PowerControlConfig(epsilon=0.1, plant_profile="v5e-chip",
+                                     sampling_period=0.02), device=dev)
+        nrm.load_state_dict(extra["nrm"])
+        check(nrm.state_dict() == extra["nrm"], "the NRM state did not "
+              "round-trip")
+        p2 = subprocess.run(argv + ["--resume", "--kill-at", "0"],
+                            cwd=ROOT, env=env, capture_output=True,
+                            text=True, timeout=300)
+        check(p2.returncode == 0 and f"[resume] restored step "
+              f"{extra['step']}" in p2.stdout, f"the resumed child: "
+              f"{p2.returncode} {p2.stdout[-2000:]} {p2.stderr[-2000:]}")
+        print(f"[train] kill and resume, two children on the card "
+              f"(launch.train {' '.join(KILL_ARGV)}): the first exited 17 "
+              f"at step 10 after its step-{last} checkpoint; {n_leaves} "
+              f"leaves restored on the card bit-equal to the saved file; "
+              f"the NRM state ({len(extra['nrm'])} keys, "
+              f"{len(extra['nrm']['heartbeats']['t'])} heartbeats) "
+              f"round-trips; the second resumed at step {extra['step']} "
+              f"and finished ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
+def xlstm_phase(dev) -> None:
+    """Phase 16 (f): xlstm-350m at full width: one train step and a served
+    batch (prefill plus XLSTM_GEN decode steps), all finite; one repeat
+    of its pattern in float32 on the card against the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import TokenIterator, for_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models import ApplyOptions, forward, init_params
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import materialize, tree_map
+    from repro_torch.optim.adamw import adamw_init_defs
+
+    cfg = get_config("xlstm-350m")
+    opts = ApplyOptions(attn_impl="cuda", scan_impl="chunked")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, dev)
+    opt = materialize(adamw_init_defs(M.model_defs(cfg)), 0, torch.float32,
+                      dev)
+    shape = ShapeConfig("t", "train", XLSTM_S, XLSTM_B)
+    batch = next(TokenIterator(for_config(cfg, shape), device=dev))
+    step = make_train_step(cfg, TrainConfig(learning_rate=TRAIN_LR,
+                                            warmup_steps=1, total_steps=1),
+                           opts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, _, m = step(params, opt, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    step_s = time.perf_counter() - t1
+    check(np.isfinite(loss) and np.isfinite(gnorm), f"xlstm step {loss} "
+          f"{gnorm}")
+    del opt
+    prompts = serve.make_prompts(cfg, XLSTM_B, XLSTM_S, 0, dev)
+    t1 = time.perf_counter()
+    logits, cache = make_prefill_step(cfg, opts)(params, prompts)
+    cache = serve.rehome_cache(cfg, cache, XLSTM_B, XLSTM_S + XLSTM_GEN)
+    dec = make_decode_step(cfg, opts)
+    finite = [bool(torch.isfinite(logits).all())]
+    for _ in range(XLSTM_GEN):
+        logits, cache = dec(params, cache,
+                            {"tokens": logits.argmax(-1)[:, None]})
+        finite.append(bool(torch.isfinite(logits).all()))
+    serve_s = time.perf_counter() - t1
+    check(all(finite), f"xlstm serving logits finite {finite}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, cache
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, num_layers=len(cfg.pattern),
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    p_cpu = init_params(cut, 3, "cpu")
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    b_cpu = next(TokenIterator(for_config(cut, ShapeConfig(
+        "t", "train", XLSTM_S, 1), seed=3), device="cpu"))
+    b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+    with torch.no_grad():
+        l_dev, _ = forward(cut, opts, p_dev, b_dev)
+        l_cpu, _ = forward(cut, opts, p_cpu, b_cpu)
+        loss_dev = float(M.loss_fn(cut, opts, p_dev, b_dev)[0])
+        loss_cpu = float(M.loss_fn(cut, opts, p_cpu, b_cpu)[0])
+    lerr = rel_err(l_dev.cpu(), l_cpu)
+    loss_err = abs(loss_dev - loss_cpu) / abs(loss_cpu)
+    check(lerr <= XLSTM_CUT_REL and loss_err <= XLSTM_CUT_REL,
+          f"xlstm float32 cut card vs CPU: logits {lerr}, loss {loss_err}")
+    print(f"[train] xlstm-350m full width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, 7:1 mLSTM:sLSTM): one train step at "
+          f"batch {XLSTM_B} x {XLSTM_S} in {step_s:.2f} s (loss {loss:.4f}, "
+          f"grad norm {gnorm:.4f}); served {XLSTM_B} prompts of {XLSTM_S} "
+          f"+ {XLSTM_GEN} decode steps in {serve_s:.2f} s, logits finite; "
+          f"peak device memory {peak:.2f} GiB; one repeat ("
+          f"{len(cut.pattern)} layers) in float32, card against CPU at "
+          f"batch 1 x {XLSTM_S}: logits rel L2 {lerr:.2e}, loss rel "
+          f"{loss_err:.2e} (bar {XLSTM_CUT_REL}) "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def train_phase(dev, smi) -> dict:
+    """Phase 16: training on the card. Returns the flash row's training
+    readings for the kernels line."""
+    import torch
+    t0 = time.perf_counter()
+    op = flash_op_phase(dev)                  # (a)
+    train_f32_cut(dev)                        # (c)
+    full = train_full_width(dev, smi)         # (b)
+    train_power(dev, full)                    # (d)
+    train_kill_resume(dev)                    # (e)
+    xlstm_phase(dev)                          # (f)
+    torch.cuda.empty_cache()
+    print(f"[train] phase 16 in {time.perf_counter() - t0:.1f} s")
+    return {"train_launches_per_step": full["launches"],
+            "train_backward_ms": op["bfloat16"]["bwd_ms"],
+            "train_backward_library_ms": op["bfloat16"]["lib_bwd_ms"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3286,6 +3873,7 @@ def main() -> int:
     serve14 = runtime_phase(dev, main_grid, main_kw, main_out,
                             main_summary, serve7, smi)    # phase 14
     fleet_plane_phase(dev, serve7, serve14, smi)          # phase 15
+    attn_rows[0].update(train_phase(dev, smi))            # phase 16
 
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f}"
           f" s, the kernels' build included")

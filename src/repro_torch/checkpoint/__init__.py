@@ -1,0 +1,2 @@
+"""Checkpoints; port of `repro.checkpoint`."""
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401

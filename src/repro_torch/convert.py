@@ -7,8 +7,10 @@ noise array from the reference's ``draw_noise`` — and returns the
 port's tensors, so both packages compute from identical inputs.
 `params_from_reference` and `cache_from_reference` do the same for the
 LM substrate's parameter and KV-cache trees (dicts and tuples of
-arrays), `carry_from_reference` for the scan engine's per-run state
-(the reference's ``_Carry``, typed PI or packed policy state),
+arrays), `train_state_from_reference` for a train step's params,
+optimizer state and error-feedback buffers, `carry_from_reference` for
+the scan engine's per-run state (the reference's ``_Carry``, typed PI or
+packed policy state),
 `rows_from_reference` (alias `policy_values_from_reference`) for packed
 rows (policy values, detector rows, the guard vector, recorder rings),
 `schedule_from_reference` and `faults_from_reference` for packed
@@ -65,6 +67,25 @@ def params_from_reference(tree, device: Union[None, str, torch.device] = None
     dtypes and values, on ``device`` (CUDA unless told otherwise)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor(a, dev), tree)
+
+
+def train_state_from_reference(params, opt_state, ef_state=None,
+                               device: Union[None, str,
+                                             torch.device] = None):
+    """The reference's train state (`repro.models.init_params` params, its
+    AdamW state ``{"m", "v", "step"}`` and, for ``int8_ef``, its
+    error-feedback tree) -> the port's ``(params, opt_state, ef_state)``
+    on ``device`` (CUDA unless told otherwise), with the same structure,
+    dtypes and values; ``step`` is a 0-d int32 tensor. So a step of both
+    packages starts from identical state."""
+    dev = resolve_device(device)
+    leaf = lambda a: _tensor(a, dev)
+    opt = {"m": tree_map(leaf, opt_state["m"]),
+           "v": tree_map(leaf, opt_state["v"]),
+           "step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                dtype=torch.int32, device=dev)}
+    ef = None if ef_state is None else tree_map(leaf, ef_state)
+    return tree_map(leaf, params), opt, ef
 
 
 def cache_from_reference(cache, device: Union[None, str, torch.device] = None

@@ -4,7 +4,8 @@ versions on the card, the inputs for them, and the bar.
 Used by `tests/test_torch_cuda.py` and `chip_smoke.py`. The cases are
 `tests/test_kernels.py`'s, plus head_dim 120 (h2o-danube-3-4b), ragged
 lengths, a sliding window narrower than a KV tile (rows whose first
-visited tile is fully masked), and the qwen3-8b serving shapes.
+visited tile is fully masked), the qwen3-8b serving shapes and the
+starcoder2-3b training shape.
 
 Tolerance, and why: float32 2e-5 absolute and relative (the kernels and
 the plain versions sum in different orders); bfloat16 2e-2 (the output
@@ -46,6 +47,10 @@ FLASH_CASES = [
 # qwen3-8b prefill, batch 8 x 1,024 tokens, per layer
 FLASH_SERVE = (8, 1024, 32, 8, 128, True, None, "bfloat16")
 FLASH_SERVE_F32 = FLASH_SERVE[:7] + ("float32",)
+# starcoder2-3b training, batch 4 x 2,048 tokens, per layer (24 heads over
+# 2 KV heads)
+FLASH_TRAIN = (4, 2048, 24, 2, 128, True, None, "bfloat16")
+FLASH_TRAIN_F32 = FLASH_TRAIN[:7] + ("float32",)
 
 # (B, T, H, K, hd, pos, ring, chunk, dtype); chunk None: the default split
 DECODE_CASES = [

@@ -1,11 +1,13 @@
-"""The LM substrate's models; port of `repro.models` (attention and
-Mamba blocks with dense or MoE feed-forward, serving path)."""
+"""The LM substrate's models; port of `repro.models` (attention, Mamba,
+mLSTM and sLSTM blocks with dense or MoE feed-forward; serving and
+training)."""
 from repro_torch.models.model import (  # noqa: F401
     cache_defs,
     decode_step,
     forward,
     init_params,
     input_defs,
+    loss_fn,
     model_defs,
     prefill,
 )

@@ -160,12 +160,34 @@ def stack_defs(defs, n: int, axis_name: str = "layers"):
 # ---------------------------------------------------------------------------
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The reference's ``custom_vjp`` of `rms_norm`: fp32 internals, and
+    cotangents in the dtypes of ``x`` and ``scale`` (a bf16 residual
+    stream gets bf16 cotangents)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        xf = x.float()
+        inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, inv)
+        return (xf * inv * scale.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, inv = ctx.saved_tensors
+        xhat = x.float() * inv
+        gx_hat = g.float() * scale.float()
+        # d/dx of x * rsqrt(mean(x^2) + eps) * scale
+        dx = inv * (gx_hat - xhat * (gx_hat * xhat).mean(-1, keepdim=True))
+        dscale = (g.float() * xhat).sum(dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
              ) -> torch.Tensor:
-    """RMSNorm with fp32 internals, output in x's dtype (forward only)."""
-    xf = x.float()
-    inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (xf * inv * scale.float()).to(x.dtype)
+    """RMSNorm with fp32 internals, output in x's dtype; differentiable,
+    with input-dtype cotangents (`_RMSNorm`)."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def rms_norm_def(dim: int, axis: Optional[str]) -> ParamDef:

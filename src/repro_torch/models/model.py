@@ -1,39 +1,57 @@
-"""Model assembly: embed -> repeated block pattern -> head; port of
-`repro.models.model` for attention and Mamba blocks with dense or MoE
-feed-forward.
+"""Model assembly: embed -> repeated block pattern -> head, and the loss;
+port of `repro.models.model` for attention, Mamba, mLSTM and sLSTM
+blocks with dense or MoE feed-forward.
 
 Parameters, caches and step inputs are described by ParamDef trees with
 the reference's structure: per-repeat parameters are stacked on a
 leading axis, so a reference parameter tree carries across leaf for leaf
 (`repro_torch.convert.params_from_reference`). The reference's scan over
-repeats is a Python loop here.
-
-mLSTM and sLSTM blocks are not ported yet and raise NotImplementedError;
-so does training (loss, remat).
+repeats is a Python loop here. A parameter tree may instead carry its
+blocks unstacked, as ``params["layers"]``: one tree of per-layer tensors
+a repeat (`unstack_blocks`), which a train step differentiates layer by
+layer.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import BlockConfig, ModelConfig, ShapeConfig
-from repro_torch.models import attention, mamba, moe
+from repro_torch.models import attention, mamba, moe, xlstm
 from repro_torch.models.layers import (ParamDef, materialize, mlp_apply,
                                        mlp_defs, rms_norm, rms_norm_def,
                                        stack_defs, tree_map)
 from repro_torch.models.types import ApplyOptions
 
-_LATER = {"mlstm": "mLSTM blocks", "slstm": "sLSTM blocks"}
+
+class _Mixer(NamedTuple):
+    """A block kind's sequence mixer."""
+    defs: Callable
+    apply: Callable
+    prefill: Callable
+    decode: Callable
 
 
-def _check_block(blk: BlockConfig) -> None:
-    if blk.kind in _LATER:
-        raise NotImplementedError(
-            f"{_LATER[blk.kind]} not ported yet: ROADMAP Queue 1 item 10")
-    if blk.kind not in ("attn", "mamba"):
+_MIX = {
+    "attn": _Mixer(attention.attn_defs, attention.attn_apply,
+                   attention.attn_prefill, attention.attn_decode),
+    "mamba": _Mixer(mamba.mamba_defs, mamba.mamba_apply,
+                    mamba.mamba_prefill, mamba.mamba_decode),
+    "mlstm": _Mixer(xlstm.mlstm_defs, xlstm.mlstm_apply,
+                    xlstm.mlstm_prefill, xlstm.mlstm_decode),
+    "slstm": _Mixer(xlstm.slstm_defs, xlstm.slstm_apply,
+                    xlstm.slstm_prefill, xlstm.slstm_decode),
+}
+
+
+def _mix(blk: BlockConfig) -> _Mixer:
+    if blk.kind not in _MIX:
         raise ValueError(blk.kind)
+    return _MIX[blk.kind]
 
 
 # ---------------------------------------------------------------------------
@@ -42,11 +60,7 @@ def _check_block(blk: BlockConfig) -> None:
 
 
 def block_defs(cfg: ModelConfig, blk: BlockConfig) -> dict:
-    _check_block(blk)
-    if blk.kind == "attn":
-        d = {"mix": attention.attn_defs(cfg)}
-    else:
-        d = {"mix": mamba.mamba_defs(cfg)}
+    d = {"mix": _mix(blk).defs(cfg)}
     if blk.ff == "dense":
         d["ff"] = {"ln": rms_norm_def(cfg.d_model, "d_model"),
                    **mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_gated)}
@@ -80,10 +94,15 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
 
 def block_cache_defs(cfg: ModelConfig, blk: BlockConfig, batch: int,
                      seq_len: int) -> dict:
-    _check_block(blk)
     if blk.kind == "attn":
         return attention.attn_cache_defs(cfg, batch, seq_len)
-    return mamba.mamba_cache_defs(cfg, batch)
+    if blk.kind == "mamba":
+        return mamba.mamba_cache_defs(cfg, batch)
+    if blk.kind == "mlstm":
+        return xlstm.mlstm_cache_defs(cfg, batch)
+    if blk.kind == "slstm":
+        return xlstm.slstm_cache_defs(cfg, batch)
+    raise ValueError(blk.kind)
 
 
 def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
@@ -132,10 +151,7 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_apply(cfg, opts, blk, p, x):
-    if blk.kind == "attn":
-        x = x + attention.attn_apply(cfg, opts, p["mix"], x)
-    else:
-        x = x + mamba.mamba_apply(cfg, opts, p["mix"], x)
+    x = x + _mix(blk).apply(cfg, opts, p["mix"], x)
     aux = _zero(x)
     if "ff" in p:
         delta, aux = _apply_ff(cfg, blk, p["ff"], x)
@@ -145,10 +161,7 @@ def _block_apply(cfg, opts, blk, p, x):
 
 def _block_apply_prefill(cfg, opts, blk, p, x):
     """Like _block_apply but also returns the block's populated cache."""
-    if blk.kind == "attn":
-        dx, cache = attention.attn_prefill(cfg, opts, p["mix"], x)
-    else:
-        dx, cache = mamba.mamba_prefill(cfg, opts, p["mix"], x)
+    dx, cache = _mix(blk).prefill(cfg, opts, p["mix"], x)
     x = x + dx
     if "ff" in p:
         x = x + _apply_ff(cfg, blk, p["ff"], x)[0]
@@ -157,11 +170,8 @@ def _block_apply_prefill(cfg, opts, blk, p, x):
 
 def _block_apply_decode(cfg, opts, blk, p, x, cache, pos):
     """The block's cache tensors are updated in place (see
-    `attention.attn_decode` and `mamba.mamba_decode`)."""
-    if blk.kind == "attn":
-        dx, _ = attention.attn_decode(cfg, opts, p["mix"], x, cache, pos)
-    else:
-        dx, _ = mamba.mamba_decode(cfg, opts, p["mix"], x, cache, pos)
+    `attention.attn_decode`, `mamba.mamba_decode` and `xlstm`)."""
+    dx, _ = _mix(blk).decode(cfg, opts, p["mix"], x, cache, pos)
     x = x + dx
     if "ff" in p:
         x = x + _apply_ff(cfg, blk, p["ff"], x)[0]
@@ -171,11 +181,6 @@ def _block_apply_decode(cfg, opts, blk, p, x, cache, pos):
 def _repeat(stacked, r: int):
     """Repeat ``r``'s slice of a stacked tree (views, no copies)."""
     return tree_map(lambda t: t[r], stacked)
-
-
-def _check(cfg: ModelConfig) -> None:
-    for blk in cfg.pattern:
-        _check_block(blk)
 
 
 # ---------------------------------------------------------------------------
@@ -193,19 +198,64 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict
     return batch["embeds"].to(cdt) @ params["in_proj"].to(cdt)
 
 
+def unstack_blocks(cfg: ModelConfig, params: dict) -> dict:
+    """``params`` with its stacked blocks as ``"layers"``: a list, one
+    entry a repeat, of the pattern's per-layer trees, views of the
+    stacked tensors (no copies). `apply_blocks` reads either form."""
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out["layers"] = [_repeat(params["blocks"], r)
+                     for r in range(cfg.num_repeats)]
+    return out
+
+
+def _unit(cfg, opts, x, sl):
+    """One repeat of the block pattern -> (x, the unit's router aux)."""
+    aux = _zero(x)
+    for j, blk in enumerate(cfg.pattern):
+        x, a = _block_apply(cfg, opts, blk, sl[j], x)
+        aux = aux + a
+    return x, aux
+
+
+# plain matrix products: what the reference's remat="dots" saves
+# (`dots_with_no_batch_dims_saveable`); batched products (einsum's bmm)
+# and everything else are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """The reference's `_maybe_remat` around one repeat unit: "full"
+    saves only the unit's inputs and recomputes it in the backward,
+    "dots" saves its plain matrix products, "none" saves everything.
+    Without autograd (serving) there is nothing to save."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def apply_blocks(cfg: ModelConfig, opts: ApplyOptions, params: dict,
                  x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, the router aux loss summed over the blocks), summed
-    unit by unit as the reference's scan carries it."""
-    _check(cfg)
+    unit by unit as the reference's scan carries it; each unit under
+    ``cfg.remat``."""
+    unit = _maybe_remat(cfg, lambda x_, sl: _unit(cfg, opts, x_, sl))
     aux = _zero(x)
     for r in range(cfg.num_repeats):
-        sl = _repeat(params["blocks"], r)
-        unit = _zero(x)
-        for j, blk in enumerate(cfg.pattern):
-            x, a = _block_apply(cfg, opts, blk, sl[j], x)
-            unit = unit + a
-        aux = aux + unit
+        sl = (params["layers"][r] if "layers" in params
+              else _repeat(params["blocks"], r))
+        x, a = unit(x, sl)
+        aux = aux + a
     return x, aux
 
 
@@ -226,6 +276,22 @@ def forward(cfg: ModelConfig, opts: ApplyOptions, params: dict,
     return logits, aux
 
 
+def loss_fn(cfg: ModelConfig, opts: ApplyOptions, params: dict,
+            batch: dict) -> Tuple[torch.Tensor, dict]:
+    """Mean next-token cross entropy plus the weighted router aux loss ->
+    (loss, {"ce", "aux"}), float32."""
+    logits, aux = forward(cfg, opts, params, batch)
+    lse = torch.logsumexp(logits.float(), dim=-1)  # [B,S]
+    # the label's logit by a gather: the reference's one-hot einsum has a
+    # single non-zero term, an exact product (logit x 1), so both give the
+    # same value, without a [B, S, vocab] one-hot
+    picked = torch.gather(logits, -1, batch["labels"].long()[..., None]
+                          )[..., 0].float()
+    ce = torch.mean(lse - picked)
+    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    return ce + aux_w * aux, {"ce": ce, "aux": aux}
+
+
 # ---------------------------------------------------------------------------
 # Prefill / decode
 # ---------------------------------------------------------------------------
@@ -234,7 +300,6 @@ def forward(cfg: ModelConfig, opts: ApplyOptions, params: dict,
 def prefill(cfg: ModelConfig, opts: ApplyOptions, params: dict,
             batch: dict) -> Tuple[torch.Tensor, dict]:
     """Run the prompt, return (last-token logits [B,V], cache)."""
-    _check(cfg)
     x = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     per_rep = []
@@ -256,7 +321,6 @@ def decode_step(cfg: ModelConfig, opts: ApplyOptions, params: dict,
     of ``cache`` (attention KV, Mamba conv and ssm states) are updated in
     place, through the per-repeat views of the stacked cache; ``pos`` may
     be an int or a 0-d tensor."""
-    _check(cfg)
     x = _embed_inputs(cfg, params, batch)
     pos = int(cache["pos"])
     for r in range(cfg.num_repeats):

@@ -1,0 +1,99 @@
+"""AdamW with fp32 moments and global-norm clipping; port of
+`repro.optim.adamw`.
+
+Optimizer state is described with ParamDefs derived from the parameter
+defs (same logical axes). The reference's ZeRO-1 (``TrainConfig.zero1``)
+maps this state through its TPU mesh's ``fsdp_tp`` rules: a sharding
+choice, which on one card has no effect.
+
+The arithmetic is the reference's, in fp32. The update runs leaf by
+leaf, in place (the reference donates params and state), under
+`torch.no_grad`, over pieces of at most `PIECE` elements along a leaf's
+leading axis: a stacked leaf one layer slice at a time, so the fp32
+temporaries stay bounded whatever the leaf's size. The global norm is
+summed the same way.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.models.layers import (ParamDef, is_def, tree_leaves_with_path,
+                                       tree_map)
+
+# elements of a leaf updated at once (256 MB of one fp32 temporary)
+PIECE = 1 << 26
+
+
+def adamw_init_defs(param_defs, moment_dtype: str = "float32") -> dict:
+    """ParamDef tree for optimizer state (m, v moments + step counter)."""
+    moment = lambda d: ParamDef(d.shape, d.axes, init="zeros",
+                                dtype=moment_dtype)
+    return {
+        "m": tree_map(moment, param_defs, is_leaf=is_def),
+        "v": tree_map(moment, param_defs, is_leaf=is_def),
+        "step": ParamDef((), (), init="zeros", dtype="int32"),
+    }
+
+
+def pieces(t: torch.Tensor) -> Sequence[torch.Tensor]:
+    """Views of ``t`` along its leading axis, each of at most `PIECE`
+    elements (a whole row of the leading axis at least)."""
+    if t.dim() == 0 or t.numel() <= PIECE:
+        return (t,)
+    rows = max(1, PIECE // (t.numel() // t.shape[0]))
+    return torch.split(t, rows, dim=0)
+
+
+def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32."""
+    total = None
+    for x in leaves:
+        for piece in pieces(x):
+            s = torch.sum(torch.square(piece.float()))
+            total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_adamw(cfg: TrainConfig, quads: List[Tuple[torch.Tensor, ...]],
+                step: torch.Tensor, lr: torch.Tensor) -> torch.Tensor:
+    """The AdamW update of each (param, grad, m, v) in ``quads`` (leaves or
+    slices of leaves; params, m and v are written in place) at the
+    incremented ``step`` -> the pre-clip global grad norm."""
+    gnorm = global_norm(g for _, g, _, _ in quads)
+    if cfg.grad_clip > 0:
+        clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                           max=1.0)
+    else:
+        clip = torch.ones_like(gnorm)
+    b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
+    c1 = 1.0 - b1 ** step.to(torch.float32)
+    c2 = 1.0 - b2 ** step.to(torch.float32)
+    for quad in quads:
+        for p, g, m, v in zip(*(pieces(t) for t in quad)):
+            g = g.float() * clip
+            mf = b1 * m.float() + (1.0 - b1) * g
+            vf = b2 * v.float() + (1.0 - b2) * torch.square(g)
+            delta = (mf / c1) / (torch.sqrt(vf / c2) + eps) \
+                + wd * p.float()
+            p.copy_(p.float() - lr * delta)
+            m.copy_(mf)
+            v.copy_(vf)
+    return gnorm
+
+
+def adamw_update(cfg: TrainConfig, params, grads, opt_state,
+                 lr: torch.Tensor) -> Tuple[dict, dict, torch.Tensor]:
+    """Returns (params, opt_state, pre-clip grad norm): ``params`` and
+    ``opt_state``'s tensors are updated in place and returned, the step
+    counter incremented."""
+    leaves = lambda t: [x for _, x in tree_leaves_with_path(t)]
+    step = opt_state["step"].add_(1)
+    quads = list(zip(leaves(params), leaves(grads), leaves(opt_state["m"]),
+                     leaves(opt_state["v"])))
+    gnorm = apply_adamw(cfg, quads, step, torch.as_tensor(
+        lr, dtype=torch.float32, device=step.device))
+    return params, opt_state, gnorm

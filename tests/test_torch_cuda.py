@@ -1225,3 +1225,106 @@ def test_plane_tick_on_the_card_equals_the_cpu(dev):
                                            b["applied"][s], rtol=1e-5)
         for f in ("_pstate", "_dstate", "_gstate", "_pcap"):
             getattr(planes[0], f)[:] = getattr(planes[1], f)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [c for c in AC.FLASH_CASES
+                                  if c[0] * c[1] <= 600])
+def test_flash_op_backward_on_the_card(dev, case):
+    """The differentiable flash op on the card: one kernel launch forward,
+    the output at the kernel's bar, and dq/dk/dv of its recompute
+    backward against the plain route's autograd on the same (q, k, v, g)
+    (both recompute through `attention_ref`; equal up to the order of
+    the GQA reduction into dk and dv, so 1e-5 of the largest grad)."""
+    causal, window, dtype = case[5:]
+    qkv = [x.requires_grad_() for x in AC.flash_inputs(case, dev)]
+    g = torch.randn(qkv[0].shape, generator=torch.Generator().manual_seed(
+        3)).to(dev, qkv[0].dtype)
+    before = FK.LAUNCHES
+    o = FO.flash_attention(*qkv, causal=causal, window=window)
+    assert FK.LAUNCHES == before + 1
+    plain = [x.detach().requires_grad_() for x in qkv]
+    o_ref = FR.attention_ref(*plain, causal=causal, window=window)
+    torch.testing.assert_close(o.detach().float(), o_ref.detach().float(),
+                               **AC.tolerance(dtype))
+    got = torch.autograd.grad(o, qkv, g)
+    want = torch.autograd.grad(o_ref, plain, g)
+    assert FK.LAUNCHES == before + 1  # the backward launches no kernel
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        tol = 1e-5 * float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
+
+
+def test_train_step_kernel_route_matches_plain_route(dev):
+    """One whole train step on the card, flash kernel route against the
+    plain route (attn_impl "blocked"), from identical state, float32 at
+    the reduced qwen3-8b widths x 2 layers under remat="full": 4 flash
+    launches (forward + recompute a layer); loss and grad norm within
+    1e-5 and 1e-4 relative (summation order), moments within 1e-4, and
+    params within 2e-6 where |g| >= 1e-6 (Adam's first update lr * g /
+    (|g| + eps) is ill-conditioned below; there within 2.2 lr)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ApplyOptions, init_params
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import (materialize,
+                                           tree_leaves_with_path, tree_map)
+    from repro_torch.optim.adamw import adamw_init_defs
+    cfg = dataclasses.replace(reduced(get_config("qwen3-8b")), num_layers=2,
+                              remat="full")
+    tc = TrainConfig(learning_rate=1e-3, total_steps=10, warmup_steps=1)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                                 ).to(dev) for k in ("tokens", "labels")}
+    p0 = init_params(cfg, 0, dev)
+    o0 = materialize(adamw_init_defs(M.model_defs(cfg)), 0, torch.float32,
+                     dev)
+    outs = {}
+    for impl in ("cuda", "blocked"):
+        params = tree_map(lambda t: t.clone(), p0)
+        opt = tree_map(lambda t: t.clone(), o0)
+        FK.LAUNCHES = 0
+        step = make_train_step(cfg, tc, ApplyOptions(attn_impl=impl,
+                                                     block_q=32))
+        _, _, m = step(params, opt, batch)
+        outs[impl] = (params, opt, m, FK.LAUNCHES)
+    (pk, ok, mk, nk), (pp, op, mp, npl) = outs["cuda"], outs["blocked"]
+    assert (nk, npl) == (4, 0)
+    np.testing.assert_allclose(float(mk["loss"]), float(mp["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(mk["grad_norm"]),
+                               float(mp["grad_norm"]), rtol=1e-4)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(ok["m"]),
+                                 tree_leaves_with_path(op["m"])):
+        torch.testing.assert_close(a, b, atol=1e-9, rtol=1e-4, msg=path)
+    for (path, a), (_, b), (_, m) in zip(tree_leaves_with_path(pk),
+                                         tree_leaves_with_path(pp),
+                                         tree_leaves_with_path(op["m"])):
+        err = (a - b).abs()
+        tight = m.abs() / 0.1 >= 1e-6
+        if bool(tight.any()):
+            assert float(err[tight].max()) <= 2e-6, path
+        assert float(err.max()) <= 2.2e-3, path
+
+
+def test_checkpoint_restores_onto_the_card(dev, tmp_path):
+    """`tests/test_checkpoint.py::test_elastic_reshard_on_load` on one card:
+    a tree saved from the CPU restores onto the card, bf16 included, bit
+    for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    tree = {"w": torch.randn(8, 16), "h": torch.randn(4, 3).bfloat16(),
+            "step": torch.tensor(7, dtype=torch.int32)}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(2, tree)
+    got, _ = mgr.restore(template=tree, device="cuda")
+    for k, v in tree.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k].cpu(), v)

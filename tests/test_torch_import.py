@@ -39,7 +39,11 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.core.executor, repro_torch.core.supervisor, "
             "repro_torch.core.nrm, repro_torch.obs.sink, "
             "repro_torch.core.hierarchy, repro_torch.obs.serve, "
-            "repro_torch.obs.validate, repro_torch.obs.regress\n"
+            "repro_torch.obs.validate, repro_torch.obs.regress, "
+            "repro_torch.launch.train, repro_torch.launch.steps, "
+            "repro_torch.models.xlstm, repro_torch.optim, "
+            "repro_torch.optim.compression, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -210,6 +214,38 @@ def test_fleet_plane_and_services_refuse_to_run_without_cuda():
               lambda: regress.main([str(ROOT / "BENCH_sim.json")]),
               lambda: regress.assess({"history": [
                   {"rev": str(i), "x": 1.0} for i in range(6)]})]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_training_entry_points_refuse_to_run_without_cuda(tmp_path):
+    """The training slice's entry points run on CUDA by default, and raise
+    without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.convert import train_state_from_reference
+    from repro_torch.data.pipeline import SyntheticLMDataset, TokenIterator
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    cfg = reduced(get_config("qwen3-8b"))
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, {"w": torch.zeros(2)})
+    makers = [
+        lambda: train.main(["--reduced", "--steps", "1", "--quiet"]),
+        lambda: train.train(cfg, ShapeConfig("t", "train", 8, 1),
+                            TrainConfig(total_steps=1)),
+        lambda: TokenIterator(SyntheticLMDataset(16, 8, 1)),
+        lambda: mgr.restore(template={"w": M.ParamDef((2,), (None,))}),
+        lambda: train_state_from_reference(
+            {"w": np.zeros(2, np.float32)},
+            {"m": {"w": np.zeros(2, np.float32)},
+             "v": {"w": np.zeros(2, np.float32)},
+             "step": np.int32(0)})]
     for make in makers:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -471,15 +471,6 @@ def test_decode_matches_forward(arch, P):
                                    rtol=tol)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m"])
-def test_unported_blocks_raise(arch):
-    cfg = tcfg.reduced(tcfg.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.cache_defs(cfg, 1, 8)
-
-
 def test_unknown_scan_impl_raises():
     cfg = tcfg.reduced(tcfg.get_config("jamba-v0.1-52b"))
     params = init_params(cfg, 0, "cpu")
