@@ -186,6 +186,19 @@ Phases, each of which fails the run if a check fails:
    one train step, a served batch, one float32 repeat on the card
    against the CPU.
 
+17. the dry-run of the production meshes (`[dryrun]` lines): the
+   port's `repro_torch.launch.dryrun` in three children at once,
+   started before phase 16 and run beside it (host CPU only, at low
+   priority), each a fake process group of 256 or 512 ranks with the
+   mesh on the card's device type and the steps on meta tensors:
+   starcoder2-3b x decode_32k on 16x16 and 2x16x16, qwen3-8b x train_4k on 16x16 (full
+   and cost), llama3-405b x train_4k on 2x16x16; each cell's wall,
+   per-rank flops, argument and temp bytes against 80 GiB, `fits` and
+   collectives; gates on the cells' JSON, qwen3-8b's cost total against
+   its full-depth count, its flops against 6 N D and its collectives.
+   Phases 7, 10 and 16 run through `launch.mesh.host_mesh` (one
+   rank: no DTensor leaf, a gate).
+
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
 kernel must hold warpgroup products (HGMMA) and TMA loads (UTMALDG), the
@@ -714,6 +727,17 @@ def median_kernel_err(series) -> float:
                for i in range(2))
 
 
+def host_mesh_line(tag: str, res: dict) -> str:
+    """Phases 7, 10 and 16 run through `host_mesh`: on one card its
+    mesh is one rank, and no weight may be a DTensor (a DTensor would put
+    DTensor dispatch on every op of the host-bound decode)."""
+    check(res["mesh"].startswith("data=1 x model=1 on cuda"),
+          f"{tag}: host mesh {res['mesh']}, expected one rank on cuda")
+    check(res["dtensor_leaves"] == 0, f"{tag}: {res['dtensor_leaves']} "
+          f"weights are DTensors on a one-rank mesh")
+    return f"host mesh {res['mesh']}, DTensor leaves 0"
+
+
 def serving_path(dev):
     """Phase 7: qwen3-8b served at full width through the kernels; then
     the kernel path's logits against the plain attention path on the
@@ -754,6 +778,8 @@ def serving_path(dev):
     gen = res["generated"]
     check(gen.shape == (B, GEN) and gen.min() >= 0
           and gen.max() < cfg.vocab_size, "generated tokens")
+    print(f"[serve] {host_mesh_line('serve', res)}; decode "
+          f"{res['tok_per_s_sim']} tok/s (earlier readings: PERF.md)")
     print(f"[serve] qwen3-8b full width ({L} layers, "
           f"{cfg.param_count() / 1e9:.3f} B parameters, bf16), batch {B}, "
           f"prompt {P}, {GEN} tokens: main() {wall:.2f} s wall (weights, "
@@ -1147,6 +1173,8 @@ def jamba_serving(dev, scan_err) -> dict:
         routes = dict(FK.ROUTE_LAUNCHES)
         scan_routes = dict(SK.ROUTE_LAUNCHES)
         scan_generic = SK.GENERIC_LAUNCHES
+    print(f"[jamba] {host_mesh_line('jamba', res)}; decode "
+          f"{res['tok_per_s_sim']} tok/s")
     check(launches == want, f"jamba serving launches {launches}, expected "
           f"{want}")
     check(scan_routes == {"seq": n_mamba, "step": n_mamba * GEN},
@@ -3222,13 +3250,23 @@ def train_f32_cut(dev) -> None:
 def train_full_width(dev, smi) -> dict:
     """Phase 16 (b): starcoder2-3b at full width and depth, `make_train_step`
     through the flash kernel under remat="full", bf16 params and fp32
-    moments, TRAIN_STEPS steps on `SyntheticLMDataset`."""
+    moments, TRAIN_STEPS steps on `SyntheticLMDataset`, under the host
+    mesh (`launch.mesh.host_mesh`, as `launch.train` runs)."""
+    from repro_torch.launch.mesh import host_mesh
+    with host_mesh(dev) as mesh:
+        return _train_full_width(dev, smi, mesh)
+
+
+def _train_full_width(dev, smi, mesh) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.data.pipeline import TokenIterator, for_config
+    from repro_torch.distributed.sharding import make_rules
     from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.launch.steps import make_train_step, value_and_grads
+    from repro_torch.launch.mesh import describe, dtensor_leaves
+    from repro_torch.launch.steps import (make_train_step, opt_rules_for,
+                                          value_and_grads)
     from repro_torch.models import ApplyOptions, init_params
     from repro_torch.models import model as M
     from repro_torch.models.layers import count_params, materialize
@@ -3245,9 +3283,14 @@ def train_full_width(dev, smi) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, 0, dev)
+    rules = make_rules(cfg.sharding_recipe, mesh)
+    params = init_params(cfg, 0, dev, rules=rules)
     opt = materialize(adamw_init_defs(defs, tcfg.moment_dtype), 0,
-                      torch.float32, dev)
+                      torch.float32, dev,
+                      rules=opt_rules_for(cfg, tcfg, mesh))
+    print(f"[train] " + host_mesh_line("train", {
+        "mesh": describe(mesh),
+        "dtensor_leaves": dtensor_leaves(params) + dtensor_leaves(opt)}))
     it = TokenIterator(for_config(cfg, shape, seed=0), device=dev)
     state_gb = torch.cuda.memory_allocated() / 1e9
     print(f"[train] {TRAIN_ARCH} full width and depth ({cfg.num_layers} "
@@ -3275,7 +3318,7 @@ def train_full_width(dev, smi) -> dict:
     check(l_err <= TRAIN_LOSS_REL_TOL, f"first-step loss rel {l_err}")
     check(g_err <= TRAIN_GNORM_REL_TOL, f"first-step grad norm rel {g_err}")
 
-    step = make_train_step(cfg, tcfg, kern)
+    step = make_train_step(cfg, tcfg, kern, rules)
     losses, walls, per_step, bwd_calls, prof = [], [], [], [], None
     for i in range(TRAIN_STEPS):
         batch = next(it)
@@ -3357,6 +3400,7 @@ def train_power(dev, full) -> None:
           f"control periods in {n} steps")
     check(res["energy_j"] > 0 and res["sim_time_s"] > 0
           and np.isfinite(res["final_loss"]), f"train --power {res}")
+    print(f"[train] train(power=True): {host_mesh_line('train', res)}")
     step_wall = float(np.mean(res["step_wall_s"][1:]))
     print(f"[train] train(power=True) {TRAIN_ARCH} full width, {n} steps, "
           f"control period {POWER_PERIOD} s: {wall:.1f} s wall; energy "
@@ -3540,6 +3584,140 @@ def train_phase(dev, smi) -> dict:
     return {"train_launches_per_step": full["launches"],
             "train_backward_ms": op["bfloat16"]["bwd_ms"],
             "train_backward_library_ms": op["bfloat16"]["lib_bwd_ms"]}
+
+
+# ---- phase 17: the dry-run of the production meshes ------------------------
+# `repro_torch.launch.dryrun`'s CLI, one child a command, all three at once
+# (each starts a fake process group of 256 or 512 ranks of its own; the
+# steps run on meta tensors, so they allocate nothing on the card)
+DRYRUN_CMDS = (
+    ("starcoder2-3b", "decode_32k", ("--both-meshes", "--artifact", "full")),
+    ("qwen3-8b", "train_4k", ("--artifact", "both")),
+    ("llama3-405b", "train_4k", ("--multi-pod", "--artifact", "full")),
+)
+# the cost artifact's depth-scaled total against its direct full-depth
+# count: the same eager program, so only the base's share of rounding
+DRYRUN_COST_REL_TOL = 0.02
+HBM_GIB = 80
+
+
+def _dryrun_cell_line(res: dict) -> str:
+    if res["artifact"] == "cost":
+        wall = res["cost_r1"]["lower_s"] + res["cost_r2"]["lower_s"] + \
+            res["full_depth"]["lower_s"]
+        return (f"cost: traced in {wall:.1f} s (R1 {res['cost_r1']['lower_s']}"
+                f", R2 {res['cost_r2']['lower_s']}, full depth "
+                f"{res['full_depth']['lower_s']}); per-rank flops "
+                f"{res['total_flops']:.4e} by R1/R2 against "
+                f"{res['full_depth']['flops']:.4e} counted at full depth; "
+                f"collective link bytes {res['total_collective_link_bytes']:.4e}")
+    mem = res["memory_analysis"]
+    return (f"full: traced in {res['lower_s']} s; per-rank flops "
+            f"{res['cost_analysis']['flops']:.4e}; arguments "
+            f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB + temp "
+            f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f} GiB of {HBM_GIB} GiB, "
+            f"fits {res['fits']}; microbatches {res['microbatches']['run']} "
+            f"run of {res['microbatches']['total']}; collectives "
+            f"{res['collectives_summary']}")
+
+
+def start_dryrun() -> dict:
+    """Starts phase 17's children (`DRYRUN_CMDS`, at low priority). They
+    use the host's CPU only (meta tensors), so they run beside phase 16's
+    device-bound training; `dryrun_phase` collects them, and
+    `stop_dryrun` ends any still running."""
+    import os
+    import shutil
+    out = ROOT / "build" / "phase17_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for i, (arch, shape, extra) in enumerate(DRYRUN_CMDS):
+        argv = ["nice", "-n", "10", sys.executable, "-m",
+                "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                shape, *extra, "--out", str(out / str(i))]
+        procs.append((arch, subprocess.Popen(
+            argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return {"procs": procs, "out": out, "started": time.perf_counter()}
+
+
+def stop_dryrun(run: dict) -> None:
+    for _, proc in run["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_phase(smi, run: dict) -> None:
+    """Phase 17: the port's dry-run (`repro_torch.launch.dryrun`) of three
+    cells on the production meshes, in the children `start_dryrun`
+    started, the mesh on the card's device type: starcoder2-3b x
+    decode_32k on both meshes (the reference test's cell), qwen3-8b x
+    train_4k on 16x16 (full and cost), llama3-405b x train_4k on 2x16x16
+    (full: the largest arch's fits check). Gates: each cell's JSON with
+    256 / 512 devices, flops > 0 and a temp size; qwen3-8b's
+    depth-scaled cost total within `DRYRUN_COST_REL_TOL` of its
+    full-depth count, its per-rank flops x 256 at least 6 N D, and
+    collectives under ``tp``."""
+    out, started = run["out"], run["started"]
+    waited = time.perf_counter()
+    walls = {}
+    try:
+        for arch, proc in run["procs"]:
+            text, _ = proc.communicate(timeout=900)
+            walls[arch] = time.perf_counter() - started
+            check(proc.returncode == 0, f"dry-run {arch} exited "
+                  f"{proc.returncode}: {text[-3000:]}")
+    finally:
+        stop_dryrun(run)
+    waited = time.perf_counter() - waited
+    cells = {}
+    for i, (arch, shape, extra) in enumerate(DRYRUN_CMDS):
+        for f in sorted((out / str(i)).glob("*.json")):
+            res = json.loads(f.read_text())
+            cells[f.stem] = res
+            want = 512 if res["mesh"] == "2x16x16" else 256
+            check(res["devices"] == want, f"{f.stem}: devices "
+                  f"{res['devices']}, expected {want}")
+            check(res["mesh_device"] == "cuda", f"{f.stem}: mesh on "
+                  f"{res['mesh_device']}")
+            if res["artifact"] == "full":
+                check(res["cost_analysis"]["flops"] > 0, f"{f.stem}: flops")
+                check("temp_size_in_bytes" in res["memory_analysis"],
+                      f"{f.stem}: no temp size")
+            print(f"[dryrun] {arch} x {shape} x {res['mesh']} "
+                  f"({res['devices']} ranks, {res['mode']}, "
+                  f"{res['params'] / 1e9:.3f} B parameters): "
+                  + _dryrun_cell_line(res))
+    expected = {"starcoder2-3b__decode_32k__16x16__full",
+                "starcoder2-3b__decode_32k__2x16x16__full",
+                "qwen3-8b__train_4k__16x16__full",
+                "qwen3-8b__train_4k__16x16__cost",
+                "llama3-405b__train_4k__2x16x16__full"}
+    check(set(cells) == expected, f"dry-run cells {sorted(cells)}")
+    full = cells["qwen3-8b__train_4k__16x16__full"]
+    cost = cells["qwen3-8b__train_4k__16x16__cost"]
+    direct = cost["full_depth"]["flops"]
+    rel = abs(cost["total_flops"] - direct) / direct
+    check(rel <= DRYRUN_COST_REL_TOL, f"qwen3-8b cost total "
+          f"{cost['total_flops']:.4e} vs full-depth count {direct:.4e}: "
+          f"rel {rel:.3e} > {DRYRUN_COST_REL_TOL}")
+    six_nd = 6 * full["params"] * full["tokens"]
+    per_rank = full["cost_analysis"]["flops"]
+    check(per_rank * full["devices"] >= six_nd, f"qwen3-8b per-rank flops "
+          f"{per_rank:.4e} x {full['devices']} < 6 N D {six_nd:.4e}")
+    check(full["collectives"], "qwen3-8b under tp issued no collective")
+    print(f"[dryrun] qwen3-8b: cost total vs full-depth count rel "
+          f"{rel:.3e} (bar {DRYRUN_COST_REL_TOL}); per-rank flops x "
+          f"{full['devices']} = {per_rank * full['devices']:.4e}, "
+          f"{per_rank * full['devices'] / six_nd:.3f} x 6 N D "
+          f"({six_nd:.4e}; 6 N D / {full['devices']} = "
+          f"{six_nd / full['devices']:.4e} a rank)")
+    print(f"[dryrun] children's walls (all three at once, beside phase "
+          f"16): " + ", ".join(f"{a} {w:.1f} s" for a, w in walls.items())
+          + f"; phase 17 in {time.perf_counter() - started:.1f} s, of "
+          f"which {waited:.1f} s after phase 16; on {smi}")
 
 
 def main() -> int:
@@ -3873,8 +4051,18 @@ def main() -> int:
     serve14 = runtime_phase(dev, main_grid, main_kw, main_out,
                             main_summary, serve7, smi)    # phase 14
     fleet_plane_phase(dev, serve7, serve14, smi)          # phase 15
-    attn_rows[0].update(train_phase(dev, smi))            # phase 16
+    dry = start_dryrun()                                  # phase 17's children
+    try:
+        attn_rows[0].update(train_phase(dev, smi))        # phase 16
+    except BaseException:
+        stop_dryrun(dry)
+        raise
+    dryrun_phase(smi, dry)                                # phase 17
 
+    # `host_mesh` destroyed the one-rank group each entry point started:
+    # no group outlives its run
+    check(not torch.distributed.is_initialized(),
+          "a process group is still up after the serve and train runs")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f}"
           f" s, the kernels' build included")
     print(json.dumps({"kernels": [{

@@ -11,8 +11,12 @@ restores in the port. Writes go to a temp dir and are renamed into place
 (atomic on POSIX), so a crash mid-save never corrupts the latest
 checkpoint; ``keep`` old steps are retained for rollback.
 
-The reference's elastic restore reshards onto the current TPU mesh; on
-one card it is a restore onto the template's device (or the one given).
+The reference's elastic restore reshards onto the current TPU mesh; here
+a leaf whose template is a DTensor (a mesh of several ranks) is restored
+as this rank's shard in the template's placements, and any other leaf
+onto the template's device (or the one given). A DTensor leaf is saved
+whole: every rank gathers it (a collective, so every rank calls `save`),
+and rank 0 writes the step.
 """
 from __future__ import annotations
 
@@ -28,7 +32,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import is_def, tree_leaves_with_path, tree_map
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.models.layers import (is_def, local_part,
+                                       tree_leaves_with_path, tree_map)
 
 _RAW16 = np.dtype("V2")
 
@@ -38,6 +44,8 @@ def _to_host(t) -> np.ndarray:
     the tensor do not reach; bfloat16 as raw 2-byte values."""
     if not isinstance(t, torch.Tensor):
         return np.array(t)
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_RAW16)
@@ -69,9 +77,20 @@ def _unflatten_like(template, arrays: Dict[str, np.ndarray], device):
             dev = tmpl.device
         else:
             dev = resolve_device(None)
+        if is_dtensor(tmpl):
+            return local_part(_from_host(arr).to(dev), tmpl.device_mesh,
+                               tmpl.placements)
         return _from_host(arr).to(dev)
 
     return tree_map(one, template, is_leaf=is_def)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group
+    that is up, or a process with none."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
 
 
 class CheckpointManager:
@@ -90,6 +109,8 @@ class CheckpointManager:
         async save may run while they are updated in place."""
         self.wait()  # one in-flight async save at a time
         flat = {k: _to_host(v) for k, v in tree_leaves_with_path(tree)}
+        if not _writes():
+            return self.dir / f"step_{step:09d}"
 
         def _write():
             tmp = Path(tempfile.mkdtemp(dir=self.dir, prefix=".tmp_"))

@@ -9,6 +9,12 @@ scan of Mamba blocks in both), which fall to their plain versions on the
 CPU. Weights are random, made from ``--seed``. `serve` runs the same
 driver on a given ``ModelConfig`` (for instance a depth-cut one).
 
+The steps run under the rules of the host mesh (`launch.mesh.
+host_mesh`, the config's recipe), as the reference's do: on one
+card (one rank) nothing is placed, and the weights and caches are plain
+tensors; under ``torchrun`` the mesh spans the ranks and the weights are
+DTensors.
+
 CPU quickstart:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --reduced --batch 4 --prompt-len 64 --gen 32
@@ -46,10 +52,12 @@ from repro_torch.configs.base import ModelConfig, PowerControlConfig
 from repro_torch.core.nrm import NRM, SimulatedPowerActuator
 from repro_torch.core.plane import ControlPlane
 from repro_torch.core.plant import PROFILES
+from repro_torch.distributed.sharding import is_dtensor, make_rules
+from repro_torch.launch.mesh import describe, dtensor_leaves, host_mesh
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import init_params
 from repro_torch.models import model as M
-from repro_torch.models.layers import is_def, tree_map
+from repro_torch.models.layers import is_def, place, tree_map
 from repro_torch.models.types import ApplyOptions
 
 
@@ -68,24 +76,36 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
     return {"embeds": emb.to(device, getattr(torch, cfg.compute_dtype))}
 
 
-def rehome_cache(cfg: ModelConfig, cache: dict, batch: int, total_len: int
-                 ) -> dict:
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy next tokens [B, 1], whole on every rank: on a mesh of
+    several ranks the logits are a DTensor, and the [B, 1] argmax is
+    gathered, as the host's copy of the reference's sharded array is."""
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    return tok.full_tensor() if is_dtensor(tok) else tok
+
+
+def rehome_cache(cfg: ModelConfig, cache: dict, batch: int, total_len: int,
+                 rules=None) -> dict:
     """Re-home a prefill cache into the decode-length cache, as the
     reference's ``place``: each leaf is zero-padded up to its def's shape
     (KV tensors along the sequence up to ``total_len``; a sliding window's
     ring and the Mamba states keep their size) and cast to its def's dtype
-    (the compute dtype, but float32 for the Mamba ``ssm`` state)."""
+    (the compute dtype, but float32 for the Mamba ``ssm`` state). A
+    DTensor leaf that grows is padded whole and placed again by ``rules``
+    (the reference's pad of a sharded array reshards it likewise), once
+    a request."""
     defs = M.cache_defs(cfg, batch, total_len)["blocks"]
 
-    def place(d, src):
+    def pad(d, src):
         dtype = getattr(torch, d.dtype or cfg.compute_dtype)
         if tuple(src.shape) == d.shape:
             return src.to(dtype)
-        out = src.new_zeros(d.shape, dtype=dtype)
-        out[tuple(slice(0, n) for n in src.shape)] = src
-        return out
+        whole = src.full_tensor() if is_dtensor(src) else src
+        out = whole.new_zeros(d.shape, dtype=dtype)
+        out[tuple(slice(0, n) for n in whole.shape)] = whole
+        return place(out, d, rules) if is_dtensor(src) else out
 
-    return {"blocks": tree_map(place, defs, cache["blocks"], is_leaf=is_def),
+    return {"blocks": tree_map(pad, defs, cache["blocks"], is_leaf=is_def),
             "pos": int(cache["pos"])}
 
 
@@ -123,25 +143,27 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
         if on_obs is not None:
             on_obs(obs_srv)
     try:
-        return _serve(cfg, batch, prompt_len, gen, seed, dev, quiet, power,
-                      epsilon, plant, plane, obs_srv)
+        with host_mesh(dev) as mesh:
+            return _serve(cfg, batch, prompt_len, gen, seed, dev, quiet,
+                          power, epsilon, plant, plane, obs_srv, mesh)
     finally:
         if obs_srv is not None:
             obs_srv.stop()
 
 
 def _serve(cfg, batch, prompt_len, gen, seed, dev, quiet, power, epsilon,
-           plant, plane, obs_srv) -> dict:
+           plant, plane, obs_srv, mesh) -> dict:
     total_len = prompt_len + gen
     opts = ApplyOptions(attn_impl="cuda", scan_impl="cuda")
 
-    params = init_params(cfg, seed, dev)
-    pre_fn = make_prefill_step(cfg, opts)
-    dec_fn = make_decode_step(cfg, opts)
+    rules = make_rules(cfg.sharding_recipe, mesh)
+    params = init_params(cfg, seed, dev, rules=rules)
+    pre_fn = make_prefill_step(cfg, opts, rules)
+    dec_fn = make_decode_step(cfg, opts, rules)
     prompts = make_prompts(cfg, batch, prompt_len, seed, dev)
 
     logits, cache = pre_fn(params, prompts)
-    dec_cache = rehome_cache(cfg, cache, batch, total_len)
+    dec_cache = rehome_cache(cfg, cache, batch, total_len, rules)
     del cache
 
     nrm = (NRM(PowerControlConfig(epsilon=epsilon, plant_profile=plant,
@@ -152,7 +174,7 @@ def _serve(cfg, batch, prompt_len, gen, seed, dev, quiet, power, epsilon,
     cp = actuator = profile = None
     tokens_out = []
     sim_time, energy, last_ctrl, ctrl_s = 0.0, 0.0, 0.0, 0.0
-    next_tok = torch.argmax(logits, dim=-1)[:, None]
+    next_tok = greedy_tokens(logits)
     t0 = time.time()
     for i in range(gen):
         if cfg.input_mode == "tokens":
@@ -163,7 +185,7 @@ def _serve(cfg, batch, prompt_len, gen, seed, dev, quiet, power, epsilon,
                 dtype=getattr(torch, cfg.compute_dtype))}
         t1 = time.time()
         logits, dec_cache = dec_fn(params, dec_cache, dec_batch)
-        next_tok = torch.argmax(logits, dim=-1)[:, None]
+        next_tok = greedy_tokens(logits)
         tokens_out.append(next_tok.cpu().numpy())  # waits for the step
         dt_real = max(time.time() - t1, 1e-5)
         if not power:
@@ -225,6 +247,10 @@ def _serve(cfg, batch, prompt_len, gen, seed, dev, quiet, power, epsilon,
         "plane_wall_s": round(ctrl_s, 4) if cp is not None else None,
         # the greedy tokens, [batch, gen]: one key beyond the reference's
         "generated": np.concatenate(tokens_out, axis=1),
+        # the host mesh the steps ran under, and how many weights it placed
+        # as DTensors (none on one rank)
+        "mesh": describe(mesh),
+        "dtensor_leaves": dtensor_leaves(params),
     }
     if obs_srv is not None:
         result["obs_url"] = obs_srv.url

@@ -1,25 +1,32 @@
 """Step-function builders: train, prefill and decode; port of
 `repro.launch.steps`.
 
-The reference returns ``(fn, args_abstract, in_shardings,
-out_shardings)`` for ``jax.jit`` and binds its TPU mesh's sharding rules
-(``use_rules``, ZeRO-1's ``fsdp_tp`` rules for the optimizer state) at
-trace time. Those are shardings, not computation: on one card there are
-none, and PyTorch runs eagerly, so each builder returns the step
-callable alone.
+`make_train_step`, `make_prefill_step` and `make_decode_step` return the
+step callable; given ``rules`` (`repro_torch.distributed.sharding`) each
+step runs under ``use_rules(rules)``, so the model code's ``shard(...)``
+calls resolve against the mesh. `make_step` is the reference's builder:
+``(fn, args_abstract, in_placements, out_placements, donate)``, where
+the arguments are meta tensors (`layers.abstract`) for the dry-run and
+the placements are trees of DTensor placements (the reference's
+``in_shardings`` / ``out_shardings``). ZeRO-1: optimizer state maps
+through the ``fsdp_tp`` rules even when params use ``tp``.
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.distributed.sharding import (Rules, is_dtensor, make_rules,
+                                              use_rules)
 from repro_torch.models import model as M
-from repro_torch.models.layers import tree_leaves_with_path, tree_map
+from repro_torch.models.layers import (abstract, tree_leaves_with_path,
+                                       tree_map)
 from repro_torch.models.types import ApplyOptions
-from repro_torch.optim.adamw import apply_adamw
-from repro_torch.optim.compression import compress_grads
+from repro_torch.optim.adamw import adamw_init_defs, apply_adamw
+from repro_torch.optim.compression import compress_grads, ef_init_defs
 from repro_torch.optim.schedule import lr_schedule
 
 
@@ -31,6 +38,38 @@ def _fill(tree, leaves):
     """``tree``'s structure with ``leaves`` (in its leaf order)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def rules_for(cfg: ModelConfig, mesh) -> Rules:
+    return make_rules(cfg.sharding_recipe, mesh)
+
+
+def opt_rules_for(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> Rules:
+    if tcfg.zero1:
+        return make_rules("fsdp_tp", mesh)
+    return rules_for(cfg, mesh)
+
+
+def _bound(rules: Optional[Rules]):
+    return use_rules(rules) if rules is not None else contextlib.nullcontext()
+
+
+def _rows(t: torch.Tensor, i: int, mb: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``mb`` rows. On a batch-sharded DTensor each
+    rank takes its own rows ``i * mb / n`` onwards (n ranks on the batch),
+    so no rank gathers the batch; a microbatch is then another set of
+    rows than the reference's, and the step's mean over microbatches the
+    same up to float32 summation order."""
+    if not is_dtensor(t):
+        return t[i * mb:(i + 1) * mb]
+    from torch.distributed.tensor import DTensor
+    local = t.to_local()
+    n = t.shape[0] // local.shape[0]
+    ml = mb // n
+    return DTensor.from_local(local[i * ml:(i + 1) * ml], t.device_mesh,
+                              t.placements, run_check=False,
+                              shape=(mb,) + tuple(t.shape[1:]),
+                              stride=local[:ml].stride())
 
 
 def value_and_grads(cfg: ModelConfig, opts: ApplyOptions, params: dict,
@@ -51,7 +90,8 @@ def value_and_grads(cfg: ModelConfig, opts: ApplyOptions, params: dict,
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    opts: ApplyOptions) -> Callable:
+                    opts: ApplyOptions, rules: Optional[Rules] = None,
+                    micro_hook: Optional[Callable] = None) -> Callable:
     """-> train_step(params, opt_state, batch, ef_state=None) ->
     (params, opt_state, metrics) or, with ``tcfg.grad_compression ==
     "int8_ef"``, (params, opt_state, metrics, ef_state).
@@ -64,11 +104,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     stacked leaf. Params and moments are updated in place and returned
     (the reference donates them). Metrics are 0-d float32 tensors on the
     params' device: ``loss``, ``grad_norm`` (before clipping), ``lr``,
-    ``ce``, ``aux``."""
+    ``ce``, ``aux``. With ``rules`` the step runs under them: on DTensor
+    params the gradients are reduced into the optimizer state's layout,
+    and the updated params gathered back into theirs (`apply_adamw`).
+    ``micro_hook(i, n_micro)``, when given, is called before microbatch
+    ``i``; once it returns False the remaining microbatches are not run
+    (the dry-run traces two and counts the others as repeats)."""
     use_ef = tcfg.grad_compression == "int8_ef"
     accum_dt = getattr(torch, tcfg.accum_dtype)
 
     def train_step(params, opt_state, batch, ef_state=None):
+        with _bound(rules):
+            return _train_step(params, opt_state, batch, ef_state)
+
+    def _train_step(params, opt_state, batch, ef_state):
         if use_ef and ef_state is None:
             raise ValueError("grad_compression='int8_ef' needs ef_state")
         lr = lr_schedule(tcfg, opt_state["step"])
@@ -78,7 +127,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             n_micro = B // mb
             acc, loss_sum = None, None
             for i in range(n_micro):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                if micro_hook is not None and not micro_hook(i, n_micro):
+                    break
+                micro = {k: _rows(v, i, mb) for k, v in batch.items()}
                 loss, _, g = value_and_grads(cfg, opts, params, micro)
                 g = [x.to(accum_dt) for x in g]
                 acc = g if acc is None else [a.add_(x)
@@ -115,22 +166,86 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, opts: ApplyOptions) -> Callable:
+def make_prefill_step(cfg: ModelConfig, opts: ApplyOptions,
+                      rules: Optional[Rules] = None) -> Callable:
     """-> prefill_step(params, batch) -> (last-token logits [B,V], cache)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return M.prefill(cfg, opts, params, batch)
+        with _bound(rules):
+            return M.prefill(cfg, opts, params, batch)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, opts: ApplyOptions) -> Callable:
+def make_decode_step(cfg: ModelConfig, opts: ApplyOptions,
+                     rules: Optional[Rules] = None) -> Callable:
     """-> decode_step(params, cache, batch) -> (logits [B,V], cache); the
     cache's KV tensors are updated in place."""
 
     @torch.no_grad()
     def decode_step(params, cache, batch):
-        return M.decode_step(cfg, opts, params, cache, batch)
+        with _bound(rules):
+            return M.decode_step(cfg, opts, params, cache, batch)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# The reference's builder: step, meta arguments and placements
+# ---------------------------------------------------------------------------
+
+
+def _logits_placements(rules: Rules, cfg: ModelConfig, shape: ShapeConfig):
+    return rules.placements(("act_batch", "act_vocab"),
+                            (shape.global_batch, cfg.vocab_size))
+
+
+def make_step(cfg: ModelConfig, opts: ApplyOptions, mesh,
+              shape: ShapeConfig, tcfg: Optional[TrainConfig] = None, *,
+              micro_hook: Optional[Callable] = None):
+    """Dispatch on ``shape.mode`` -> ``(fn, args_abstract, in_placements,
+    out_placements, donate)``, the reference's tuple: ``args_abstract``
+    are meta tensors (DTensors on a mesh of several ranks;
+    `layers.abstract`), the placements are trees of per-leaf DTensor
+    placements, and ``donate`` names the arguments the step updates in
+    place. ``micro_hook`` goes to `make_train_step`."""
+    rules = rules_for(cfg, mesh)
+    param_defs = M.model_defs(cfg)
+    in_defs = M.input_defs(cfg, shape)
+    meta = lambda defs, dt: abstract(defs, dt, rules)
+    params = meta(param_defs, cfg.param_dtype)
+    batch = meta(in_defs, cfg.compute_dtype)
+    param_pl = rules.param_placements(param_defs)
+    in_pl = rules.param_placements(in_defs)
+    if shape.mode == "train":
+        tcfg = tcfg or TrainConfig()
+        opt_rules = opt_rules_for(cfg, tcfg, mesh)
+        opt_defs = adamw_init_defs(param_defs, tcfg.moment_dtype)
+        opt = abstract(opt_defs, "float32", opt_rules)
+        opt_pl = opt_rules.param_placements(opt_defs)
+        repl = rules.replicated()
+        metrics_pl = {k: repl for k in ("loss", "grad_norm", "lr", "ce",
+                                        "aux")}
+        fn = make_train_step(cfg, tcfg, opts, rules, micro_hook)
+        args, in_p, out_p = ((params, opt, batch), (param_pl, opt_pl, in_pl),
+                             (param_pl, opt_pl, metrics_pl))
+        if tcfg.grad_compression == "int8_ef":
+            ef_defs = ef_init_defs(param_defs)
+            args += (meta(ef_defs, "float32"),)
+            in_p += (rules.param_placements(ef_defs),)
+            out_p += (rules.param_placements(ef_defs),)
+        return fn, args, in_p, out_p, (0, 1)
+    logits_pl = _logits_placements(rules, cfg, shape)
+    cache_defs = M.cache_defs(cfg, shape.global_batch, shape.seq_len)
+    cache_pl = rules.param_placements(cache_defs)
+    if shape.mode == "prefill":
+        fn = make_prefill_step(cfg, opts, rules)
+        return (fn, (params, batch), (param_pl, in_pl),
+                (logits_pl, cache_pl), ())
+    cache = meta(cache_defs, cfg.compute_dtype)
+    # the port's decode reads the position on the host (`M.decode_step`)
+    cache["pos"] = 0
+    fn = make_decode_step(cfg, opts, rules)
+    return (fn, (params, cache, batch), (param_pl, cache_pl, in_pl),
+            (logits_pl, cache_pl), (1,))

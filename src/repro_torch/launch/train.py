@@ -3,7 +3,8 @@ loop; port of `repro.launch.train`.
 
 The loop couples three systems:
 
-* the train step (`steps.make_train_step`, on one card),
+* the train step (`steps.make_train_step`, under the rules of the host
+  mesh, `launch.mesh.host_mesh`: on one card nothing is placed),
 * the data pipeline (checkpointable, deterministic),
 * the NRM power-control loop (`repro_torch.core.nrm`, on the training
   device): every optimizer step emits a heartbeat whose work is the
@@ -49,7 +50,9 @@ from repro_torch.configs.base import (ModelConfig, PowerControlConfig,
                                       ShapeConfig, TrainConfig)
 from repro_torch.core.nrm import NRM
 from repro_torch.data.pipeline import TokenIterator, for_config
-from repro_torch.launch.steps import make_train_step
+from repro_torch.distributed.sharding import make_rules
+from repro_torch.launch.mesh import describe, dtensor_leaves, host_mesh
+from repro_torch.launch.steps import opt_rules_for, make_train_step
 from repro_torch.models import init_params
 from repro_torch.models import model as M
 from repro_torch.models.layers import materialize
@@ -71,119 +74,128 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig, *,
     kernel (``attn_impl="cuda"``). Runs on CUDA unless ``device="cpu"``.
     Returns `main`'s result dict: the reference's keys, and
     ``step_wall_s`` (each step's wall), ``pcaps`` (the cap after each
-    control period) and ``nrm_wall_s`` (host time in the NRM; None
-    without ``power``)."""
+    control period), ``nrm_wall_s`` (host time in the NRM; None
+    without ``power``), ``mesh`` (the host mesh, `launch.mesh.describe`)
+    and ``dtensor_leaves`` (params placed as DTensors; 0 on one rank)."""
     dev = resolve_device(device)
     opts = ApplyOptions(attn_impl="cuda", scan_impl="chunked")
-    step_fn = make_train_step(cfg, tcfg, opts)
+    with host_mesh(dev) as mesh:
+        rules = make_rules(cfg.sharding_recipe, mesh)
+        step_fn = make_train_step(cfg, tcfg, opts, rules)
 
-    # --- state init or resume -------------------------------------------
-    param_defs = M.model_defs(cfg)
-    params = init_params(cfg, tcfg.seed, dev)
-    opt_state = materialize(adamw_init_defs(param_defs, tcfg.moment_dtype),
-                            tcfg.seed, torch.float32, dev)
-    use_ef = tcfg.grad_compression == "int8_ef"
-    ef_state = (materialize(ef_init_defs(param_defs), tcfg.seed,
-                            torch.float32, dev) if use_ef else None)
-    it = TokenIterator(for_config(cfg, shape, seed=tcfg.seed), device=dev)
-    pc_cfg = PowerControlConfig(enabled=power, epsilon=epsilon,
-                                plant_profile=plant, adaptive=adaptive,
-                                sampling_period=control_period)
-    nrm = NRM(pc_cfg, device=dev) if power else None
+        # --- state init or resume ---------------------------------------
+        param_defs = M.model_defs(cfg)
+        params = init_params(cfg, tcfg.seed, dev, rules=rules)
+        opt_state = materialize(adamw_init_defs(param_defs, tcfg.moment_dtype),
+                                tcfg.seed, torch.float32, dev,
+                                rules=opt_rules_for(cfg, tcfg, mesh))
+        use_ef = tcfg.grad_compression == "int8_ef"
+        ef_state = (materialize(ef_init_defs(param_defs), tcfg.seed,
+                                torch.float32, dev, rules=rules)
+                    if use_ef else None)
+        it = TokenIterator(for_config(cfg, shape, seed=tcfg.seed), device=dev)
+        pc_cfg = PowerControlConfig(enabled=power, epsilon=epsilon,
+                                    plant_profile=plant, adaptive=adaptive,
+                                    sampling_period=control_period)
+        nrm = NRM(pc_cfg, device=dev) if power else None
 
-    mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
-    start_step = 0
-    if mgr and resume and mgr.latest_step() is not None:
-        tree, extra = mgr.restore(template={"params": params,
-                                            "opt": opt_state})
-        params, opt_state = tree["params"], tree["opt"]
-        it.load_state_dict(extra["data"])
-        if nrm:
-            nrm.load_state_dict(extra["nrm"])
-        start_step = extra["step"]
-        print(f"[resume] restored step {start_step}")
+        mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+        start_step = 0
+        if mgr and resume and mgr.latest_step() is not None:
+            tree, extra = mgr.restore(template={"params": params,
+                                                "opt": opt_state})
+            params, opt_state = tree["params"], tree["opt"]
+            it.load_state_dict(extra["data"])
+            if nrm:
+                nrm.load_state_dict(extra["nrm"])
+            start_step = extra["step"]
+            print(f"[resume] restored step {start_step}")
 
-    # --- plant coupling ---------------------------------------------------
-    profile = nrm.profile if nrm else None
-    calibrated = False
-    sim_time, energy, last_ctrl, nrm_s = 0.0, 0.0, 0.0, 0.0
-    losses, walls, pcaps = [], [], []
+        # --- plant coupling -----------------------------------------------
+        profile = nrm.profile if nrm else None
+        calibrated = False
+        sim_time, energy, last_ctrl, nrm_s = 0.0, 0.0, 0.0, 0.0
+        losses, walls, pcaps = [], [], []
 
-    t_wall0 = time.time()
-    for step in range(start_step, tcfg.total_steps):
-        if kill_at and step == kill_at:
-            print(f"[fault] simulated node failure at step {step}")
-            raise SystemExit(17)
-        batch = next(it)
-        t0 = time.time()
-        out = step_fn(params, opt_state, batch, ef_state)
-        if use_ef:
-            params, opt_state, metrics, ef_state = out
-        else:
-            params, opt_state, metrics = out
-        loss = float(metrics["loss"])  # waits for the step
-        losses.append(loss)
-        dt_real = max(time.time() - t0, 1e-4)
-        walls.append(dt_real)
+        t_wall0 = time.time()
+        for step in range(start_step, tcfg.total_steps):
+            if kill_at and step == kill_at:
+                print(f"[fault] simulated node failure at step {step}")
+                raise SystemExit(17)
+            batch = next(it)
+            t0 = time.time()
+            out = step_fn(params, opt_state, batch, ef_state)
+            if use_ef:
+                params, opt_state, metrics, ef_state = out
+            else:
+                params, opt_state, metrics = out
+            loss = float(metrics["loss"])  # waits for the step
+            losses.append(loss)
+            dt_real = max(time.time() - t0, 1e-4)
+            walls.append(dt_real)
 
-        if nrm:
-            if step == start_step:
-                # the first step builds the kernels and warms the
-                # allocator: skipped (a wrong rate here mis-identifies K_L
-                # and destabilizes the PI gains)
-                continue
-            t1 = time.time()
-            tokens_per_step = float(shape.tokens)
-            if not calibrated:
-                # the plant's gain from this workload's full-power token
-                # rate (progress units = tokens/s)
-                nrm.calibrate(tokens_per_step / dt_real)
-                profile = nrm.profile
-                calibrated, last_ctrl = True, 0.0
-            # plant modulation: progress fraction at the current cap
-            frac = float(profile.static_progress(
-                nrm.actuator._pcap)) / profile.progress_max
-            dt_eff = dt_real / max(frac, 1e-3)
-            sim_time += dt_eff
-            energy += float(profile.power_of_pcap(nrm.actuator._pcap)) \
-                * dt_eff
-            nrm.heartbeat(work=tokens_per_step, t=sim_time)
-            if sim_time - last_ctrl >= pc_cfg.sampling_period:
-                nrm.actuator.advance(sim_time - last_ctrl)
-                nrm.control_step(now=sim_time)
-                pcaps.append(float(nrm.actuator._pcap))
-                last_ctrl = sim_time
-            nrm_s += time.time() - t1
-        else:
-            sim_time += dt_real
+            if nrm:
+                if step == start_step:
+                    # the first step builds the kernels and warms the
+                    # allocator: skipped (a wrong rate here mis-identifies K_L
+                    # and destabilizes the PI gains)
+                    continue
+                t1 = time.time()
+                tokens_per_step = float(shape.tokens)
+                if not calibrated:
+                    # the plant's gain from this workload's full-power token
+                    # rate (progress units = tokens/s)
+                    nrm.calibrate(tokens_per_step / dt_real)
+                    profile = nrm.profile
+                    calibrated, last_ctrl = True, 0.0
+                # plant modulation: progress fraction at the current cap
+                frac = float(profile.static_progress(
+                    nrm.actuator._pcap)) / profile.progress_max
+                dt_eff = dt_real / max(frac, 1e-3)
+                sim_time += dt_eff
+                energy += float(profile.power_of_pcap(nrm.actuator._pcap)) \
+                    * dt_eff
+                nrm.heartbeat(work=tokens_per_step, t=sim_time)
+                if sim_time - last_ctrl >= pc_cfg.sampling_period:
+                    nrm.actuator.advance(sim_time - last_ctrl)
+                    nrm.control_step(now=sim_time)
+                    pcaps.append(float(nrm.actuator._pcap))
+                    last_ctrl = sim_time
+                nrm_s += time.time() - t1
+            else:
+                sim_time += dt_real
 
-        if mgr and step > 0 and step % checkpoint_every == 0:
-            extra = {"step": step + 1, "data": it.state_dict(),
-                     "nrm": nrm.state_dict() if nrm else {}}
-            mgr.save(step, {"params": params, "opt": opt_state}, extra)
-        if not quiet and (step % 10 == 0 or step == tcfg.total_steps - 1):
-            pcap = f" pcap={nrm.actuator._pcap:6.1f}W" if nrm else ""
-            print(f"step {step:5d} loss={loss:.4f}"
-                  f" lr={float(metrics['lr']):.2e}{pcap}")
-    if mgr:
-        mgr.wait()
+            if mgr and step > 0 and step % checkpoint_every == 0:
+                extra = {"step": step + 1, "data": it.state_dict(),
+                         "nrm": nrm.state_dict() if nrm else {}}
+                mgr.save(step, {"params": params, "opt": opt_state}, extra)
+            if not quiet and (step % 10 == 0 or step == tcfg.total_steps - 1):
+                pcap = f" pcap={nrm.actuator._pcap:6.1f}W" if nrm else ""
+                print(f"step {step:5d} loss={loss:.4f}"
+                      f" lr={float(metrics['lr']):.2e}{pcap}")
+        if mgr:
+            mgr.wait()
 
-    result = {
-        "final_loss": losses[-1] if losses else float("nan"),
-        "first_loss": losses[0] if losses else float("nan"),
-        "steps": tcfg.total_steps - start_step,
-        "wall_s": time.time() - t_wall0,
-        "sim_time_s": sim_time,
-        "energy_j": energy,
-        "step_wall_s": walls,
-        "pcaps": pcaps,
-        "nrm_wall_s": nrm_s if nrm else None,
-    }
-    if not quiet:
-        print({k: (round(v, 4) if isinstance(v, float) else v)
-               for k, v in result.items()
-               if k not in ("step_wall_s", "pcaps")})
-    return result
+        result = {
+            "final_loss": losses[-1] if losses else float("nan"),
+            "first_loss": losses[0] if losses else float("nan"),
+            "steps": tcfg.total_steps - start_step,
+            "wall_s": time.time() - t_wall0,
+            "sim_time_s": sim_time,
+            "energy_j": energy,
+            "step_wall_s": walls,
+            "pcaps": pcaps,
+            "nrm_wall_s": nrm_s if nrm else None,
+            # the host mesh the step ran under, and how many weights it placed
+            # as DTensors (none on one rank)
+            "mesh": describe(mesh),
+            "dtensor_leaves": dtensor_leaves(params),
+        }
+        if not quiet:
+            print({k: (round(v, 4) if isinstance(v, float) else v)
+                   for k, v in result.items()
+                   if k not in ("step_wall_s", "pcaps")})
+        return result
 
 
 def main(argv=None, device: Union[None, str, torch.device] = None) -> dict:

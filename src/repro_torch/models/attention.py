@@ -1,10 +1,21 @@
 """GQA attention: train/prefill (full sequence) + decode with a KV cache;
 port of `repro.models.attention`.
 
-The reference picks between head-sharded and KV-sequence-sharded layouts
-on a TPU mesh (its ``shard(...)`` calls and ``kvseq_tp`` flag). On one
-card there is no mesh: the layout constraints are dropped, and the math
-is the reference's single-device math.
+Sharding modes, picked from the active rules as the reference picks
+them (`repro_torch.distributed.sharding`):
+
+* **head-TP** — query heads divide the ``model`` axis: heads sharded,
+  KV repeated to every head and sharded with them (classic Megatron TP).
+* **kvseq-TP** — heads do not divide the axis (24-head / 4-head archs),
+  no rules are active, or we are decoding: the KV sequence dim is
+  sharded on ``model``, and the softmax contraction over KV is
+  reduced across it by DTensor.
+
+Each ``shard(...)`` is a DTensor redistribute on a mesh of several
+ranks and the identity otherwise; on one rank (or with no rules) the
+math is the reference's single-device math. The kernels see local
+shards only: on DTensor inputs each kernel call runs under `local_map`
+with the layout of its branch (`_flash_local`, `_decode_local`).
 
 ``opts.attn_impl`` selects the implementation of the full-sequence core:
 ``"reference"`` (one full score block), ``"blocked"`` (a loop over query
@@ -19,6 +30,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (dim_shardable, is_dtensor,
+                                              local_call, shard, write_index)
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (ParamDef, apply_rope, rms_norm,
@@ -89,24 +102,39 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
     return m
 
 
+def _softmax(s: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """Softmax over the last dim of scores laid out by ``axes``. On a
+    DTensor it is written as a max, an exp and a sum whose statistics are
+    all-reduced across a sharded KV dim (as GSPMD does); DTensor's own
+    softmax would gather the scores whole."""
+    if not is_dtensor(s):
+        return torch.softmax(s, dim=-1)
+    stat = axes[:-1] + (None,)
+    e = torch.exp(s - shard(torch.amax(s, dim=-1, keepdim=True), *stat))
+    return e / shard(torch.sum(e, dim=-1, keepdim=True), *stat)
+
+
 def _score_block(qb: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  qpos_b: torch.Tensor, k_pos: torch.Tensor,
-                 window: Optional[int], causal: bool, scale: float
-                 ) -> torch.Tensor:
+                 window: Optional[int], causal: bool, scale: float,
+                 kvseq_tp: bool = True) -> torch.Tensor:
     """qb: [B, blk, H, hd]; k/v: [B, T, H, hd] -> [B, blk, H, hd].
     Products in the input dtype, softmax in float32 (the reference's
     dtype boundaries)."""
     s = torch.einsum("bqhd,bthd->bhqt", qb, k).float() * scale
+    axes = (("act_batch", None, None, "act_kvseq") if kvseq_tp
+            else ("act_batch", "act_heads", None, None))
+    s = shard(s, *axes)
     m = _mask(qpos_b, k_pos, window, causal)
     s = torch.where(m[None, None, :, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = _softmax(s, axes)
     return torch.einsum("bhqt,bthd->bqhd", p.to(v.dtype), v).to(v.dtype)
 
 
 def _score_block_grouped(qb: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          qpos_b: torch.Tensor, k_pos: torch.Tensor,
-                         window: Optional[int], causal: bool, scale: float
-                         ) -> torch.Tensor:
+                         window: Optional[int], causal: bool, scale: float,
+                         kvseq_tp: bool = True) -> torch.Tensor:
     """GQA without materializing repeated K/V.
     qb: [B, blk, H, hd]; k, v: [B, T, K, hd] -> [B, blk, H, hd]."""
     B, blk, H, hd = qb.shape
@@ -114,9 +142,12 @@ def _score_block_grouped(qb: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = H // K
     qg = qb.reshape(B, blk, K, G, hd)
     s = torch.einsum("bqkgd,btkd->bkgqt", qg, k).float() * scale
+    axes = ("act_batch", None, None, None, "act_kvseq" if kvseq_tp else None)
+    if kvseq_tp:
+        s = shard(s, *axes)
     m = _mask(qpos_b, k_pos, window, causal)
     s = torch.where(m[None, None, None, :, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = _softmax(s, axes)
     o = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype), v)
     return o.reshape(B, blk, H, hd).to(v.dtype)
 
@@ -124,7 +155,8 @@ def _score_block_grouped(qb: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                    window: Optional[int], causal: bool,
-                   opts: ApplyOptions) -> torch.Tensor:
+                   opts: ApplyOptions, kvseq_tp: bool = True
+                   ) -> torch.Tensor:
     """q: [B,S,H,hd]; k,v: [B,T,K,hd]; q_pos: [S]; k_pos: [T] -> [B,S,H,hd]."""
     if opts.attn_impl not in IMPLS:
         raise ValueError(f"attn_impl {opts.attn_impl!r} not in {IMPLS}")
@@ -132,21 +164,74 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K = k.shape[2]
     G = H // K
     scale = hd ** -0.5
-    # On one device the reference always takes its kvseq_tp layout, whose
-    # grouped einsum (attention.py:145) returns before its kernel call for
-    # G > 1. That branch is a choice of TPU sharding layout, not of math:
-    # the flash kernel maps query head h to KV head h // G itself and
-    # computes the same function, so "cuda" takes it for every G.
-    score = _score_block_grouped if G > 1 else _score_block
     blk = opts.block_q
-    if opts.attn_impl == "reference" or S <= blk or S % blk != 0:
-        return score(q, k, v, q_pos, k_pos, window, causal, scale)
-    if opts.attn_impl == "cuda":
-        return flash_attention(q, k, v, q_pos, k_pos, window=window,
-                               causal=causal, block=blk)
-    return torch.cat([score(q[:, i:i + blk], k, v, q_pos[i:i + blk], k_pos,
-                            window, causal, scale)
-                      for i in range(0, S, blk)], dim=1)
+    # Without rules (and on a one-rank mesh) the reference always takes its
+    # kvseq_tp layout, whose grouped einsum (attention.py:145) returns
+    # before its kernel call for G > 1. That branch is a choice of TPU
+    # sharding layout, not of math: the flash kernel maps query head h to
+    # KV head h // G itself and computes the same function, so "cuda"
+    # takes it for every G.
+    if opts.attn_impl == "cuda" and S > blk and S % blk == 0:
+        return _flash_local(q, k, v, q_pos, k_pos, window, causal, blk,
+                            kvseq_tp)
+    if kvseq_tp and G > 1:
+        # grouped einsum: no K/V repeat
+        k = shard(k, "act_batch", "act_kvseq", None, None)
+        v = shard(v, "act_batch", "act_kvseq", None, None)
+        score = _score_block_grouped
+    else:
+        if G > 1:
+            k = torch.repeat_interleave(k, G, dim=2)
+            v = torch.repeat_interleave(v, G, dim=2)
+        if kvseq_tp:
+            k = shard(k, "act_batch", "act_kvseq", None, None)
+            v = shard(v, "act_batch", "act_kvseq", None, None)
+        else:
+            k = shard(k, "act_batch", None, "act_heads", None)
+            v = shard(v, "act_batch", None, "act_heads", None)
+        score = _score_block
+    whole = opts.attn_impl == "reference" or S <= blk or S % blk != 0
+
+    def blocks(q, k, v, q_pos, k_pos):
+        if whole:
+            return score(q, k, v, q_pos, k_pos, window, causal, scale,
+                         kvseq_tp)
+        return torch.cat([score(q[:, i:i + blk], k, v, q_pos[i:i + blk],
+                                k_pos, window, causal, scale, kvseq_tp)
+                          for i in range(0, S, blk)], dim=1)
+
+    if kvseq_tp:
+        return blocks(q, k, v, q_pos, k_pos)
+    # head-TP: every head's scores are its own rank's; DTensor would merge
+    # the batch and head shards into one strided dim of its batched
+    # product, which it cannot place, so the blocks run on the local shards
+    heads = ("act_batch", None, "act_heads", None)
+    return local_call(blocks, (q, k, v, q_pos, k_pos),
+                      (heads, heads, heads, None, None), (heads,),
+                      (q.shape,))
+
+
+def _flash_local(q, k, v, q_pos, k_pos, window, causal, blk, kvseq_tp):
+    """The flash kernel on the local shards. Head-TP: q sharded on its
+    heads and K/V repeated to every head and sharded with them (the
+    reference's ``k_rep`` layout), so each rank's heads pair with their
+    own KV heads. kvseq-TP: the kernel needs every KV position of its
+    queries, so heads and KV stay whole on ``model`` and only the batch
+    is split (``act_batch``), as for the reference's kernel call, which
+    GSPMD cannot split either."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    if not kvseq_tp and G > 1:
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    heads = None if kvseq_tp else "act_heads"
+    qa = ("act_batch", None, heads, None)
+    kva = ("act_batch", None, heads, None)
+    return local_call(
+        lambda q_, k_, v_, qp, kp: flash_attention(
+            q_, k_, v_, qp, kp, window=window, causal=causal, block=blk),
+        (q, k, v, q_pos, k_pos), (qa, kva, kva, None, None),
+        (qa,), (q.shape,))
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +244,8 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     a = cfg.attn
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    # the bf16 boundary: the seq all-gather moves h, not the fp32 internals
+    h = shard(h, "act_batch", None, None)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
@@ -176,9 +263,12 @@ def _full_sequence(cfg: ModelConfig, opts: ApplyOptions, p: dict,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions.expand(B, S))
+    kvseq_tp = not dim_shardable("act_heads", a.num_heads)
     o = attention_core(q, k, v, positions, positions,
-                       window=a.sliding_window, causal=a.causal, opts=opts)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), k, v
+                       window=a.sliding_window, causal=a.causal, opts=opts,
+                       kvseq_tp=kvseq_tp)
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return shard(y, "act_batch", "act_seq_res", None), k, v
 
 
 def attn_apply(cfg: ModelConfig, opts: ApplyOptions, p: dict,
@@ -202,7 +292,11 @@ def attn_prefill(cfg: ModelConfig, opts: ApplyOptions, p: dict,
         v_cache = torch.roll(v[:, start:], shifts=roll, dims=1)
     else:
         k_cache, v_cache = k, v
-    return y, {"k": k_cache, "v": v_cache}
+    cache = {
+        "k": shard(k_cache, "act_batch", "act_kvseq", "act_kv_heads", None),
+        "v": shard(v_cache, "act_batch", "act_kvseq", "act_kv_heads", None),
+    }
+    return y, cache
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +322,8 @@ def attn_decode(cfg: ModelConfig, opts: ApplyOptions, p: dict,
     window = a.sliding_window
     slot = (pos % window) if window else pos
     k, v = cache["k"], cache["v"]
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
+    write_index(k, k_new[:, 0], slot, dim=1)
+    write_index(v, v_new[:, 0], slot, dim=1)
 
     slots = torch.arange(T, device=dev)
     if window:
@@ -240,12 +334,23 @@ def attn_decode(cfg: ModelConfig, opts: ApplyOptions, p: dict,
 
     if opts.attn_impl == "cuda":
         # split-KV decode kernel (repro_torch.kernels.decode_attention)
-        o = decode_attention(q[:, 0], k, v, k_pos.to(torch.int32),
-                             pos)[:, None]
+        o = _decode_local(q[:, 0], k, v, k_pos.to(torch.int32), pos)[:, None]
     else:
         o = attention_core(q, k, v, torch.full((1,), pos, device=dev),
                            k_pos, window=window, causal=a.causal,
                            opts=dataclasses.replace(opts,
-                                                    attn_impl="reference"))
+                                                    attn_impl="reference"),
+                           kvseq_tp=True)
     y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return y, {"k": k, "v": v}
+    return shard(y, "act_batch", None, None), {"k": k, "v": v}
+
+
+def _decode_local(q, k, v, k_pos, pos):
+    """The split-KV decode kernel on the local shards: the batch split
+    as the cache's (``act_kv_batch``), every KV position and head whole
+    on each rank (the kernel's combine runs within one call)."""
+    qa = ("act_kv_batch", None, None)
+    kva = ("act_kv_batch", None, None, None)
+    return local_call(
+        lambda q_, k_, v_, kp: decode_attention(q_, k_, v_, kp, pos),
+        (q, k, v, k_pos), (qa, kva, kva, None), (qa,), (q.shape,))

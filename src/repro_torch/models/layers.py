@@ -1,9 +1,11 @@
 """Parameter definitions and common layers; port of `repro.models.layers`.
 
 Parameters are described by a tree (nested dicts and tuples) of
-:class:`ParamDef`; the same tree materializes tensors and counts
-parameters. The logical axis names are kept from the reference (they
-named TPU mesh axes there; on one card they are documentation).
+:class:`ParamDef`; the same tree materializes tensors (`materialize`),
+makes storage-free ones for the dry-run (`abstract`) and counts parameters.
+Logical axis names are mapped to mesh axes by the active sharding
+recipe (`repro_torch.distributed.sharding`): on a mesh of several ranks
+each leaf becomes a DTensor with its rules' placements.
 """
 from __future__ import annotations
 
@@ -126,20 +128,81 @@ def _trunc_normal(n: int, key: int, device: torch.device) -> torch.Tensor:
     return out
 
 
+def local_part(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of a whole tensor ``t`` as a DTensor (no
+    communication: every rank made the same ``t``)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import local_shape_and_offset
+    shape, offset = local_shape_and_offset(tuple(t.shape), mesh, placements)
+    local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _sharded(rules) -> bool:
+    from repro_torch.distributed.sharding import mesh_size
+    return rules is not None and mesh_size(rules.mesh) > 1
+
+
 def materialize(defs, seed: int, dtype,
-                device: Union[None, str, torch.device] = None) -> dict:
+                device: Union[None, str, torch.device] = None,
+                rules=None) -> dict:
     """ParamDef tree -> tensor tree on ``device`` (CUDA unless the caller
     passes ``device="cpu"``; see `repro_torch.resolve_device`). Each leaf
     is a counter-based stream keyed by ``seed`` and the CRC-32 of the
     leaf's path, so a leaf's values depend neither on the other leaves
-    nor on the device."""
+    nor on the device.
+
+    With ``rules`` on a mesh of several ranks each leaf is a DTensor
+    placed by ``rules.placements`` (the reference's ``param_shardings``):
+    every rank draws the whole leaf and keeps its shard, so the values
+    equal the unsharded ones. On one rank (or without rules) the leaves
+    are plain tensors, so a one-rank step pays no DTensor dispatch."""
     dtype = _dtype(dtype)
     device = resolve_device(device)
     # tree_map visits the leaves in tree_leaves_with_path's order
     paths = iter(p for p, _ in tree_leaves_with_path(defs, is_def))
-    return tree_map(lambda d: _materialize_one(d, seed, next(paths), dtype,
-                                               device),
-                    defs, is_leaf=is_def)
+    if not _sharded(rules):
+        return tree_map(lambda d: _materialize_one(d, seed, next(paths),
+                                                   dtype, device),
+                        defs, is_leaf=is_def)
+    return tree_map(lambda d: local_part(
+        _materialize_one(d, seed, next(paths), dtype, device), rules.mesh,
+        rules.placements(d.axes, d.shape)), defs, is_leaf=is_def)
+
+
+def place(tree, defs, rules):
+    """A tree of whole tensors (the structure of ``defs``) as DTensors
+    placed by ``rules``; the tree itself when ``rules`` span one rank."""
+    if not _sharded(rules):
+        return tree
+    return tree_map(lambda d, t: local_part(
+        t, rules.mesh, rules.placements(d.axes, d.shape)), defs, tree,
+        is_leaf=is_def)
+
+
+def abstract(defs, dtype, rules=None) -> dict:
+    """ParamDef tree -> meta tensors (shapes and dtypes, no storage), the
+    counterpart of the reference's ``ShapeDtypeStruct`` stand-ins. With
+    ``rules`` on a mesh of several ranks each leaf is a DTensor whose
+    local shard has the shape its placements give this rank."""
+    dtype = _dtype(dtype)
+
+    def one(d: ParamDef):
+        dt = _dtype(d.dtype) if d.dtype is not None else dtype
+        if not _sharded(rules):
+            return torch.empty(d.shape, dtype=dt, device="meta")
+        from torch.distributed.tensor import DTensor
+        from repro_torch.distributed.sharding import local_shape_and_offset
+        pl = rules.placements(d.axes, d.shape)
+        shape, _ = local_shape_and_offset(tuple(d.shape), rules.mesh, pl)
+        whole = torch.empty(d.shape, dtype=dt, device="meta")
+        return DTensor.from_local(torch.empty(shape, dtype=dt, device="meta"),
+                                  rules.mesh, pl, run_check=False,
+                                  shape=whole.shape, stride=whole.stride())
+
+    return tree_map(one, defs, is_leaf=is_def)
 
 
 def count_params(defs) -> int:

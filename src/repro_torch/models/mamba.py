@@ -1,9 +1,9 @@
 """Mamba (S6) block: full-sequence apply, prefill and single-token decode;
 port of `repro.models.mamba`.
 
-The reference shards the inner dim on a TPU mesh (its ``shard(...)``
-calls); on one card the layout constraints are dropped. ``opts.scan_impl``
-selects the recurrence:
+The inner dim is sharded on ``model`` (the reference's ``shard(...)``
+calls, DTensor redistributes on a mesh of several ranks and the identity
+on one). ``opts.scan_impl`` selects the recurrence:
 
 - ``"chunked"``: the reference's `_mamba_seq`, with the discretised
   [B, S, d_inner, N] tensors formed in memory, a log-depth scan of
@@ -11,6 +11,7 @@ selects the recurrence:
 - ``"cuda"``: the selective-scan kernel (`repro_torch.kernels.
   selective_scan`), which never forms them; its plain version on a CPU
   tensor. Decode takes the kernel too, at S = 1 from the cached state.
+  On DTensor inputs it runs on each rank's channels (`_scan_local`).
 
 Everything inside the recurrence is float32, as in the reference.
 """
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_call, shard
 from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.models.layers import ParamDef, rms_norm, rms_norm_def
 from repro_torch.models.types import ApplyOptions
@@ -73,7 +75,9 @@ def _split_in(cfg, p, x):
     """ln -> in_proj -> (x_part, z). x: [B, S, D]."""
     d_in = _dims(cfg)[0]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = shard(h, "act_batch", None, None)  # the bf16 boundary
     xz = h @ p["in_proj"]
+    xz = shard(xz, "act_batch", None, "act_dinner")
     return xz[..., :d_in], xz[..., d_in:]
 
 
@@ -156,12 +160,34 @@ def _mamba_seq(cfg: ModelConfig, opts: ApplyOptions, p: dict,
     if opts.scan_impl == "cuda":
         # float32 x, so y (with D x added in the kernel) stays float32
         # until the gate, as in the reference
-        y, h_last = selective_scan(xa32, dt, A, Bc, Cc, p["d_skip"])
+        y, h_last = _scan_local(xa32, dt, A, Bc, Cc, p["d_skip"])
     else:
         y, h_last = _chunked_scan(cfg, xa32, dt, A, Bc, Cc)
         y = y + xa32 * p["d_skip"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], conv_state, h_last
+    y = shard(y, "act_batch", None, "act_dinner")
+    out = shard(y @ p["out_proj"], "act_batch", "act_seq_res", None)
+    return out, conv_state, h_last
+
+
+# the selective scan's layout: channels (d_inner) split on ``model``, the
+# batch on ``data``; B and C are shared by every channel, so whole
+_X = ("act_batch", None, "act_dinner")
+_BC = ("act_batch", None, None)
+_A = ("act_dinner", None)
+_H = ("act_batch", "act_dinner", None)
+
+
+def _scan_local(x, dt, A, Bc, Cc, d_skip, h0=None):
+    """The selective-scan kernel on the local shards: every channel's
+    recurrence is independent, so each rank scans its own channels."""
+    args = (x, dt, A, Bc, Cc, d_skip) + (() if h0 is None else (h0,))
+    axes = (_X, _X, _A, _BC, _BC, ("act_dinner",)) + (
+        () if h0 is None else (_H,))
+    B, S, d_in = x.shape
+    return local_call(
+        lambda *a: selective_scan(*a[:6], h0=a[6] if len(a) > 6 else None),
+        args, axes, (_X, _H), ((B, S, d_in), (B, d_in, A.shape[1])))
 
 
 def mamba_apply(cfg: ModelConfig, opts: ApplyOptions, p: dict,
@@ -195,8 +221,8 @@ def mamba_decode(cfg: ModelConfig, opts: ApplyOptions, p: dict,
 
     xa32 = xa.float()
     if opts.scan_impl == "cuda":
-        y, h = selective_scan(xa32, dt, A, Bc, Cc, p["d_skip"],
-                              h0=cache["ssm"])
+        y, h = _scan_local(xa32, dt, A, Bc, Cc, p["d_skip"],
+                           h0=cache["ssm"])
     else:
         dA = torch.exp(dt[:, 0, :, None] * A)  # [B, d_in, N]
         dBx = (dt[:, 0] * xa32[:, 0])[..., None] * Bc[:, 0, None, :]
@@ -206,4 +232,4 @@ def mamba_decode(cfg: ModelConfig, opts: ApplyOptions, p: dict,
     y = (y * F.silu(z.float())).to(x.dtype)
     cache["conv"].copy_(conv_state)
     cache["ssm"].copy_(h)
-    return y @ p["out_proj"], cache
+    return shard(y @ p["out_proj"], "act_batch", None, None), cache

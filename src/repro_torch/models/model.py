@@ -21,6 +21,9 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import BlockConfig, ModelConfig, ShapeConfig
+from repro_torch.distributed.sharding import (current_rules, fsdp_gather,
+                                              is_dtensor, shard, shard_grad,
+                                              use_rules)
 from repro_torch.models import attention, mamba, moe, xlstm
 from repro_torch.models.layers import (ParamDef, materialize, mlp_apply,
                                        mlp_defs, rms_norm, rms_norm_def,
@@ -86,10 +89,13 @@ def model_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def init_params(cfg: ModelConfig, seed: int, device=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int, device=None,
+                rules=None) -> dict:
     """Random weights from ``seed`` on ``device``, CUDA unless the caller
-    passes ``device="cpu"`` (see `layers.materialize`)."""
-    return materialize(model_defs(cfg), seed, cfg.param_dtype, device)
+    passes ``device="cpu"`` (see `layers.materialize`); DTensors placed by
+    ``rules`` on a mesh of several ranks."""
+    return materialize(model_defs(cfg), seed, cfg.param_dtype, device,
+                       rules=rules)
 
 
 def block_cache_defs(cfg: ModelConfig, blk: BlockConfig, batch: int,
@@ -143,39 +149,51 @@ def _apply_ff(cfg: ModelConfig, blk: BlockConfig, p: dict,
     if blk.ff == "moe":
         return moe.moe_apply(cfg, p, x)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    return mlp_apply(p, h, cfg.mlp_gated), _zero(x)
+    h = shard(h, "act_batch", None, None)
+    return shard_grad(mlp_apply(p, h, cfg.mlp_gated), "act_batch", None,
+                      None), _zero(x)
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _gathered(cfg, blk, p):
+    """The block's weights, FSDP-gathered under ``fsdp_tp`` rules."""
+    return fsdp_gather(p, lambda: block_defs(cfg, blk))
+
+
 def _block_apply(cfg, opts, blk, p, x):
+    p = _gathered(cfg, blk, p)
     x = x + _mix(blk).apply(cfg, opts, p["mix"], x)
+    x = shard(x, "act_batch", "act_seq_res", "act_dmodel")
     aux = _zero(x)
     if "ff" in p:
         delta, aux = _apply_ff(cfg, blk, p["ff"], x)
-        x = x + delta
+        x = shard(x + delta, "act_batch", "act_seq_res", "act_dmodel")
     return x, aux
 
 
 def _block_apply_prefill(cfg, opts, blk, p, x):
     """Like _block_apply but also returns the block's populated cache."""
+    p = _gathered(cfg, blk, p)
     dx, cache = _mix(blk).prefill(cfg, opts, p["mix"], x)
-    x = x + dx
+    x = shard(x + dx, "act_batch", None, None)
     if "ff" in p:
-        x = x + _apply_ff(cfg, blk, p["ff"], x)[0]
+        x = shard(x + _apply_ff(cfg, blk, p["ff"], x)[0], "act_batch", None,
+                  None)
     return x, cache
 
 
 def _block_apply_decode(cfg, opts, blk, p, x, cache, pos):
     """The block's cache tensors are updated in place (see
     `attention.attn_decode`, `mamba.mamba_decode` and `xlstm`)."""
+    p = _gathered(cfg, blk, p)
     dx, _ = _mix(blk).decode(cfg, opts, p["mix"], x, cache, pos)
     x = x + dx
     if "ff" in p:
         x = x + _apply_ff(cfg, blk, p["ff"], x)[0]
-    return x
+    return shard(x, "act_batch", None, "act_dmodel")
 
 
 def _repeat(stacked, r: int):
@@ -188,14 +206,33 @@ def _repeat(stacked, r: int):
 # ---------------------------------------------------------------------------
 
 
+def _top(cfg: ModelConfig, params: dict, *names: str):
+    """The model's top-level weights ``names``, FSDP-gathered under
+    ``fsdp_tp`` rules."""
+    return fsdp_gather({k: params[k] for k in names},
+                       lambda: {k: model_defs(cfg)[k] for k in names})
+
+
 def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict
                   ) -> torch.Tensor:
     cdt = getattr(torch, cfg.compute_dtype)
-    if cfg.input_mode == "tokens":
+    params = _top(cfg, params, "embed" if cfg.input_mode == "tokens"
+                  else "in_proj")
+    if cfg.input_mode == "tokens" and is_dtensor(params["embed"]):
+        # a sharded table: the reference's one-hot contraction over
+        # act_vocab, whose partial sums the shard below reduces
+        tok = batch["tokens"].long()
+        onehot = (tok[..., None] == torch.arange(
+            cfg.vocab_size, device=tok.device)).to(cdt)
+        onehot = shard(onehot, "act_batch", None, "act_vocab")
+        x = torch.einsum("bsv,vd->bsd", onehot, params["embed"].to(cdt))
+    elif cfg.input_mode == "tokens":
         # a row lookup: equal to the reference's one-hot einsum, without a
         # [B, S, vocab] one-hot
-        return F.embedding(batch["tokens"].long(), params["embed"]).to(cdt)
-    return batch["embeds"].to(cdt) @ params["in_proj"].to(cdt)
+        x = F.embedding(batch["tokens"].long(), params["embed"]).to(cdt)
+    else:
+        x = batch["embeds"].to(cdt) @ params["in_proj"].to(cdt)
+    return shard(x, "act_batch", "act_seq_res", "act_dmodel")
 
 
 def unstack_blocks(cfg: ModelConfig, params: dict) -> dict:
@@ -241,6 +278,15 @@ def _maybe_remat(cfg: ModelConfig, fn):
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    rules = current_rules()
+    if rules is not None:
+        # the recompute runs in the backward, on the autograd engine's
+        # thread for a device tensor: it must see the forward's rules
+        inner = fn
+
+        def fn(*args):
+            with use_rules(rules):
+                return inner(*args)
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
@@ -260,8 +306,14 @@ def apply_blocks(cfg: ModelConfig, opts: ApplyOptions, params: dict,
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head: x [B, S, D] -> logits [B, S, V] sharded on
+    the vocab, or x [B, D] (the last token) -> [B, V]."""
+    params = _top(cfg, params, "final_ln", "lm_head")
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+    mid = (None,) * (x.dim() - 2)
+    x = shard(x, "act_batch", *mid, None)  # the bf16 boundary
+    logits = x @ params["lm_head"].to(x.dtype)
+    return shard(logits, "act_batch", *mid, "act_vocab")
 
 
 def forward(cfg: ModelConfig, opts: ApplyOptions, params: dict,
@@ -281,12 +333,33 @@ def loss_fn(cfg: ModelConfig, opts: ApplyOptions, params: dict,
     """Mean next-token cross entropy plus the weighted router aux loss ->
     (loss, {"ce", "aux"}), float32."""
     logits, aux = forward(cfg, opts, params, batch)
-    lse = torch.logsumexp(logits.float(), dim=-1)  # [B,S]
-    # the label's logit by a gather: the reference's one-hot einsum has a
-    # single non-zero term, an exact product (logit x 1), so both give the
-    # same value, without a [B, S, vocab] one-hot
-    picked = torch.gather(logits, -1, batch["labels"].long()[..., None]
-                          )[..., 0].float()
+    labels = batch["labels"].long()
+    if is_dtensor(logits):
+        # vocab-sharded logits: the reference's own contraction, a one-hot
+        # sharded on act_vocab (each rank builds its slice) whose partial
+        # sums are reduced over the vocab shards, and a log-sum-exp from a
+        # max and a sum over them, so no rank gathers [B, S, vocab]
+        # Each statistic is reduced whole on every rank (all-reduces of
+        # [B, S]); DTensor would otherwise reduce-scatter it over the
+        # sequence, and its backward could not place the LM head's grad.
+        lf = logits.float()
+        m = shard(torch.amax(lf, dim=-1, keepdim=True), "act_batch", None,
+                  None).detach()
+        z = shard(torch.sum(torch.exp(lf - m), dim=-1), "act_batch", None)
+        lse = m[..., 0] + torch.log(z)
+        onehot = (labels[..., None] == torch.arange(
+            cfg.vocab_size, device=labels.device)).to(logits.dtype)
+        onehot = shard(onehot, "act_batch", None, "act_vocab")
+        # a product and a sum: DTensor's einsum would fold b and s into
+        # one strided dim
+        picked = shard(torch.sum(logits * onehot, dim=-1), "act_batch",
+                       None).float()
+    else:
+        lse = torch.logsumexp(logits.float(), dim=-1)  # [B,S]
+        # the label's logit by a gather: the reference's one-hot einsum has
+        # a single non-zero term, an exact product (logit x 1), so both
+        # give the same value, without a [B, S, vocab] one-hot
+        picked = torch.gather(logits, -1, labels[..., None])[..., 0].float()
     ce = torch.mean(lse - picked)
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
     return ce + aux_w * aux, {"ce": ce, "aux": aux}

@@ -1,10 +1,14 @@
 """Top-k MoE with GShard-style capacity dispatch; port of
 `repro.models.moe`.
 
-Tokens are reshaped into dispatch groups ``[G, gsz, D]``; dispatch and
-combine are one-hot einsums, so the layer is matmuls (the reference lies
-outside any Pallas kernel, and so does this port). Returns the
-load-balancing auxiliary loss (Switch-style) alongside outputs.
+Tokens are reshaped into dispatch groups ``[G, gsz, D]`` (G sharded with
+the batch); dispatch and combine are one-hot einsums, so the layer is
+matmuls (the reference lies outside any Pallas kernel, and so does this
+port). Experts are sharded on the ``model`` axis, padded to its multiple
+when they do not divide it. The routing (argmax, one-hot, cumsum) has no
+DTensor rule and runs on each rank's groups under `local_map`
+(`sharding.local_call`). Returns the load-balancing auxiliary loss
+(Switch-style) alongside outputs.
 """
 from __future__ import annotations
 
@@ -14,7 +18,26 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (current_rules, local_call,
+                                              mesh_axes, shard)
 from repro_torch.models.layers import ParamDef, rms_norm, rms_norm_def
+
+
+def _expert_padding(E: int) -> int:
+    """Experts padded to the model-axis multiple so they shard.
+
+    granite's 40 experts do not divide a 16-way model axis; padding
+    40->48 dummy experts (zero dispatch mass) makes E shardable, so the
+    expert products are local to each rank, for +20 % expert flops. No
+    padding without rules or on a model axis of one rank."""
+    rules = current_rules()
+    if rules is None:
+        return E
+    names, sizes = mesh_axes(rules.mesh)
+    m = dict(zip(names, sizes)).get("model", 1)
+    if m <= 1 or E % m == 0:
+        return E
+    return ((E + m - 1) // m) * m
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -89,28 +112,50 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
 
     h = rms_norm(x, p["ln"], cfg.norm_eps) if "ln" in p else x
     xg = h.reshape(G, gsz, D)
+    xg = shard(xg, "act_batch", None, None)
 
     logits = torch.einsum("gsd,de->gse", xg.float(), p["router"].float())
     gates = torch.softmax(logits, dim=-1)  # [G, s, E] fp32
-    dispatch, combine = _route(gates, K, C)
+    grp = ("act_batch", None, None, None)
+    dispatch, combine = local_call(
+        lambda g: _route(g, K, C), (gates,), (("act_batch", None, None),),
+        (grp, grp), ((G, gsz, E, C),) * 2)
 
     cdt = getattr(torch, cfg.compute_dtype)
-    # The reference pads the experts to a multiple of its TPU mesh's model
-    # axis (`_expert_padding`), and only when mesh rules are active. One
-    # card has no mesh, so E is never padded.
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt), xg)
-    up = torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
+    # aux loss from the unpadded dispatch (padding never routes mass)
+    frac_tokens = dispatch.sum(-1)  # [G, s, E]
+
+    # pad the experts so E shards on the model axis (no-op when E already
+    # divides it, on one rank, or without rules)
+    E_pad = _expert_padding(E)
+    if E_pad != E:
+        dispatch = F.pad(dispatch, (0, 0, 0, E_pad - E))
+        combine = F.pad(combine, (0, 0, 0, E_pad - E))
+        pad_w = lambda w: shard(F.pad(w, (0, 0, 0, 0, 0, E_pad - E)),
+                                "act_experts", None, None)
+        w_up, w_down = pad_w(p["w_up"]), pad_w(p["w_down"])
+        w_gate = pad_w(p["w_gate"]) if mo.gated else None
+    else:
+        w_up, w_down, w_gate = p["w_up"], p["w_down"], p.get("w_gate")
+
+    dispatch_c = shard(dispatch.to(cdt), "act_batch", None, None, None)
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch_c, xg)
+    expert_in = shard(expert_in, "act_experts", "act_batch", None, None)
+    up = torch.einsum("egcd,edf->egcf", expert_in, w_up)
     if mo.gated:
-        act = F.silu(torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"]))
+        act = F.silu(torch.einsum("egcd,edf->egcf", expert_in, w_gate))
         hmid = act * up
     else:
         # jax.nn.gelu defaults to the tanh approximation
         hmid = F.gelu(up, approximate="tanh")
-    expert_out = torch.einsum("egcf,efd->egcd", hmid, p["w_down"])
+    hmid = shard(hmid, "act_experts", "act_batch", None, "act_dff")
+    expert_out = torch.einsum("egcf,efd->egcd", hmid, w_down)
+    expert_out = shard(expert_out, "act_experts", "act_batch", None, None)
     y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), expert_out)
+    y = shard(y.reshape(B, S, D), "act_batch", "act_seq_res", None)
 
     # Switch-style load-balance loss: E * sum_e f_e * P_e
-    frac = torch.mean(dispatch.sum(-1), dim=(0, 1))  # tokens routed per expert
+    frac = torch.mean(frac_tokens, dim=(0, 1))  # tokens routed per expert
     prob = torch.mean(gates, dim=(0, 1))
     aux = E * torch.sum(frac / torch.clamp(frac.sum(), min=1e-9) * prob)
-    return y.reshape(B, S, D), aux.to(torch.float32)
+    return y, aux.to(torch.float32)

@@ -11,8 +11,11 @@ reference's deviation from the paper's m_t stabilizer).
 sLSTM (scalar memory, new-memory mixing) is sequential: a loop over time
 with the paper's m_t stabilizer.
 
-The reference shards the inner dim on a TPU mesh (its ``shard(...)``
-calls); on one card the layout constraints are dropped. Decode writes
+The inner dim is sharded on ``model`` (the reference's ``shard(...)``
+calls: DTensor redistributes on a mesh of several ranks, the identity on
+one). The sLSTM's per-step loop and the mLSTM's chunk loop run on
+whatever layout DTensor propagates; no sharded run of either has been
+checked against the one-rank port yet. Decode writes
 the new states into the cache's tensors in place, as the port's other
 blocks do; the returned cache holds the same tensors.
 """
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import ParamDef, rms_norm, rms_norm_def
 from repro_torch.models.types import ApplyOptions
 
@@ -74,7 +78,7 @@ def _mlstm_qkv_gates(cfg, p, x):
     d_in, NH, dh = _mlstm_dims(cfg)
     B, S, _ = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    up = h @ p["up_proj"]
+    up = shard(h @ p["up_proj"], "act_batch", None, "act_dinner")
     xi, z = up[..., :d_in], up[..., d_in:]
     q = (xi @ p["wq"]).reshape(B, S, NH, dh)
     k = (xi @ p["wk"]).reshape(B, S, NH, dh) * (dh ** -0.5)
@@ -135,7 +139,8 @@ def _mlstm_seq(cfg: ModelConfig, opts: ApplyOptions, p: dict,
         ys.append(y_c.to(x.dtype))
     y = torch.cat(ys, dim=1).reshape(B, S, d_in)
     y = rms_norm(y, p["gn"], cfg.norm_eps) * F.silu(z)
-    return y @ p["down_proj"], C, n
+    y = shard(y, "act_batch", None, "act_dinner")
+    return shard(y @ p["down_proj"], "act_batch", "act_seq_res", None), C, n
 
 
 def mlstm_apply(cfg: ModelConfig, opts: ApplyOptions, p: dict,
@@ -169,7 +174,7 @@ def mlstm_decode(cfg: ModelConfig, opts: ApplyOptions, p: dict,
     y = rms_norm(y, p["gn"], cfg.norm_eps) * F.silu(z)
     cache["C"].copy_(C)
     cache["n"].copy_(n)
-    return y @ p["down_proj"], cache
+    return shard(y @ p["down_proj"], "act_batch", None, None), cache
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +240,8 @@ def _slstm_seq(cfg: ModelConfig, opts: ApplyOptions, p: dict,
         carry, h_t = _slstm_step(p, carry, x_proj[:, t])
         hs.append(h_t)
     y = torch.stack(hs, dim=1).to(x.dtype)  # [B, S, D]
-    return _slstm_out(cfg, p, y), carry
+    return shard(_slstm_out(cfg, p, y), "act_batch", "act_seq_res", None
+                 ), carry
 
 
 def slstm_apply(cfg: ModelConfig, opts: ApplyOptions, p: dict,
@@ -259,4 +265,5 @@ def slstm_decode(cfg: ModelConfig, opts: ApplyOptions, p: dict,
                                x_proj)
     for k, t in zip(_SLSTM_STATE, carry):
         cache[k].copy_(t)
-    return _slstm_out(cfg, p, h_out[:, None].to(x.dtype)), cache
+    return shard(_slstm_out(cfg, p, h_out[:, None].to(x.dtype)),
+                 "act_batch", None, None), cache

@@ -2,9 +2,11 @@
 `repro.optim.adamw`.
 
 Optimizer state is described with ParamDefs derived from the parameter
-defs (same logical axes). The reference's ZeRO-1 (``TrainConfig.zero1``)
-maps this state through its TPU mesh's ``fsdp_tp`` rules: a sharding
-choice, which on one card has no effect.
+defs (same logical axes). ZeRO-1 (``TrainConfig.zero1``) places this
+state by the ``fsdp_tp`` rules (`launch.steps`): on DTensor leaves each
+gradient is reduced into its moments' layout, the update runs on the
+local shards, and the new parameter is gathered back into its own
+layout. On plain tensors (one rank) nothing moves.
 
 The arithmetic is the reference's, in fp32. The update runs leaf by
 leaf, in place (the reference donates params and state), under
@@ -38,10 +40,16 @@ def adamw_init_defs(param_defs, moment_dtype: str = "float32") -> dict:
     }
 
 
+def _is_dtensor(t) -> bool:
+    from repro_torch.distributed.sharding import is_dtensor
+    return is_dtensor(t)
+
+
 def pieces(t: torch.Tensor) -> Sequence[torch.Tensor]:
     """Views of ``t`` along its leading axis, each of at most `PIECE`
-    elements (a whole row of the leading axis at least)."""
-    if t.dim() == 0 or t.numel() <= PIECE:
+    elements (a whole row of the leading axis at least). A DTensor is
+    one piece: its local shard is what a rank holds."""
+    if t.dim() == 0 or t.numel() <= PIECE or _is_dtensor(t):
         return (t,)
     rows = max(1, PIECE // (t.numel() // t.shape[0]))
     return torch.split(t, rows, dim=0)
@@ -62,27 +70,71 @@ def apply_adamw(cfg: TrainConfig, quads: List[Tuple[torch.Tensor, ...]],
                 step: torch.Tensor, lr: torch.Tensor) -> torch.Tensor:
     """The AdamW update of each (param, grad, m, v) in ``quads`` (leaves or
     slices of leaves; params, m and v are written in place) at the
-    incremented ``step`` -> the pre-clip global grad norm."""
+    incremented ``step`` -> the pre-clip global grad norm. A DTensor
+    gradient is first reduced into its moments' layout, once."""
+    quads = [(p, g.redistribute(m.device_mesh, m.placements), m, v)
+             if _is_dtensor(g) else (p, g, m, v) for p, g, m, v in quads]
     gnorm = global_norm(g for _, g, _, _ in quads)
     if cfg.grad_clip > 0:
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                            max=1.0)
     else:
         clip = torch.ones_like(gnorm)
-    b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
+    b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1.0 - b1 ** step.to(torch.float32)
     c2 = 1.0 - b2 ** step.to(torch.float32)
+    if any(_is_dtensor(t) for t in (gnorm, step, lr)):
+        # replicated scalars: each rank's local value is the whole one
+        clip, c1, c2, lr_l = (_whole(t) for t in (clip, c1, c2, lr))
+    else:
+        lr_l = lr
     for quad in quads:
+        if _is_dtensor(quad[0]):
+            _update_sharded(cfg, quad, clip, c1, c2, lr_l)
+            continue
         for p, g, m, v in zip(*(pieces(t) for t in quad)):
-            g = g.float() * clip
-            mf = b1 * m.float() + (1.0 - b1) * g
-            vf = b2 * v.float() + (1.0 - b2) * torch.square(g)
-            delta = (mf / c1) / (torch.sqrt(vf / c2) + eps) \
-                + wd * p.float()
-            p.copy_(p.float() - lr * delta)
-            m.copy_(mf)
-            v.copy_(vf)
+            _update(cfg, p, g, m, v, clip, c1, c2, lr)
     return gnorm
+
+
+def _whole(t) -> torch.Tensor:
+    from torch.distributed.tensor import Replicate
+    if not _is_dtensor(t):
+        return t
+    return t.redistribute(t.device_mesh,
+                          [Replicate()] * t.device_mesh.ndim).to_local()
+
+
+def _update(cfg: TrainConfig, p, g, m, v, clip, c1, c2, lr) -> None:
+    """One AdamW update of plain tensors, in place."""
+    b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
+    g = g.float() * clip
+    mf = b1 * m.float() + (1.0 - b1) * g
+    vf = b2 * v.float() + (1.0 - b2) * torch.square(g)
+    delta = (mf / c1) / (torch.sqrt(vf / c2) + eps) + wd * p.float()
+    p.copy_(p.float() - lr * delta)
+    m.copy_(mf)
+    v.copy_(vf)
+
+
+def _update_sharded(cfg: TrainConfig, quad, clip, c1, c2, lr) -> None:
+    """The update of DTensor leaves in the moments' layout: the gradient
+    is reduced into it (a reduce-scatter from partial sums, a slice from
+    a replicated gradient), the parameter sliced into it, the update run
+    on the local shards, and the new parameter gathered back into its own
+    layout (ZeRO-1's all-gather when the moments are sharded finer)."""
+    from torch.distributed.tensor import DTensor
+    p, g, m, v = quad
+    mesh, pl = m.device_mesh, tuple(m.placements)
+    g_l = g.redistribute(mesh, pl).to_local()
+    same = tuple(p.placements) == pl
+    p_m = p if same else p.redistribute(mesh, pl)
+    p_l = p_m.to_local() if same else p_m.to_local().clone()
+    _update(cfg, p_l, g_l, m.to_local(), v.to_local(), clip, c1, c2, lr)
+    if not same:
+        new = DTensor.from_local(p_l, mesh, pl, run_check=False,
+                                 shape=p.shape, stride=p.stride())
+        p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
 
 
 def adamw_update(cfg: TrainConfig, params, grads, opt_state,

@@ -1328,3 +1328,68 @@ def test_checkpoint_restores_onto_the_card(dev, tmp_path):
     for k, v in tree.items():
         assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
         assert torch.equal(got[k].cpu(), v)
+
+
+# ---------------------------------------------------------------------------
+# the mesh layer
+# ---------------------------------------------------------------------------
+
+
+def test_serve_on_the_host_mesh_equals_the_mesh_free_steps(dev):
+    """`serve` runs under the one-rank host mesh's rules (NCCL on the
+    card): no weight is a DTensor, and its greedy tokens equal those of
+    the step builders called with no rules at all. The NCCL group it
+    starts is destroyed when it returns, and a second call starts its
+    own again."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import ApplyOptions, init_params
+    B, P, GEN = 2, 64, 4
+    res = serve.main(["--reduced", "--batch", str(B), "--prompt-len",
+                      str(P), "--gen", str(GEN), "--quiet"], device=dev)
+    assert res["mesh"] == "data=1 x model=1 on cuda"
+    assert res["dtensor_leaves"] == 0
+    assert not torch.distributed.is_initialized()
+    cfg = reduced(get_config("qwen3-8b"))
+    opts = ApplyOptions(attn_impl="cuda", scan_impl="cuda")
+    params = init_params(cfg, 0, dev)
+    logits, cache = make_prefill_step(cfg, opts)(
+        params, serve.make_prompts(cfg, B, P, 0, dev))
+    cache = serve.rehome_cache(cfg, cache, B, P + GEN)
+    dec, toks = make_decode_step(cfg, opts), []
+    nxt = torch.argmax(logits, dim=-1)[:, None]
+    for _ in range(GEN):
+        logits, cache = dec(params, cache, {"tokens": nxt})
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+        toks.append(nxt.cpu().numpy())
+    np.testing.assert_array_equal(res["generated"],
+                                  np.concatenate(toks, axis=1))
+    again = serve.main(["--reduced", "--batch", str(B), "--prompt-len",
+                        str(P), "--gen", str(GEN), "--quiet"], device=dev)
+    np.testing.assert_array_equal(again["generated"], res["generated"])
+    assert not torch.distributed.is_initialized()
+
+
+def test_dryrun_with_the_mesh_on_the_card_writes_one_cell(dev, tmp_path):
+    """The dry-run CLI with its mesh on the card's device type (fake
+    256-rank group, meta tensors): one cell's JSON, nothing allocated."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "starcoder2-3b", "--shape", "decode_32k", "--artifact", "full",
+         "--out", str(tmp_path)],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    cells = list(tmp_path.glob("*.json"))
+    assert [c.name for c in cells] == [
+        "starcoder2-3b__decode_32k__16x16__full.json"]
+    res = json.loads(cells[0].read_text())
+    assert res["devices"] == 256 and res["mesh_device"] == "cuda"
+    assert res["cost_analysis"]["flops"] > 0 and res["fits"]

@@ -43,7 +43,10 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.launch.train, repro_torch.launch.steps, "
             "repro_torch.models.xlstm, repro_torch.optim, "
             "repro_torch.optim.compression, repro_torch.data.pipeline, "
-            "repro_torch.checkpoint\n"
+            "repro_torch.checkpoint, repro_torch.distributed, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.collectives, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -56,6 +59,22 @@ def test_import_loads_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+
+
+def test_mesh_layer_imports_start_no_process_group():
+    """Importing the mesh layer starts no process group and loads no
+    testing module (the fake group is the dry-run's, at run time)."""
+    code = ("import sys, torch.distributed as dist, "
+            "repro_torch.distributed, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun\n"
+            "print(dist.is_initialized(), any('fake_pg' in m for m in "
+            "sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False False"
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
