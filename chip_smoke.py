@@ -198,6 +198,21 @@ Phases, each of which fails the run if a check fails:
    its full-depth count, its flops against 6 N D and its collectives.
    Phases 7, 10 and 16 run through `launch.mesh.host_mesh` (one
    rank: no DTensor leaf, a gate).
+18. the reference's four examples through `repro_torch.examples`
+   (`[examples]` lines, each example's own lines prefixed): quickstart
+   and identify_and_control on the card and again on the CPU in this
+   process on the same `draw_noise` streams, the card held to the CPU
+   (campaign means, fits, caps, tau, the sweep at the closed loop's
+   parity bar, the NRM and the fleet); `eps_sweep` through one
+   seeds-route closed-loop launch; serve_batched (starcoder2-3b
+   reduced, without and with ``--power``: the decode kernel for every
+   token, the greedy tokens equal); train_micro_lm (qwen3-8b reduced,
+   killed at step 100 with exit 17, resumed from its step-80 checkpoint
+   at step 81 to a lower loss, no process group left). No call of a
+   kernel's plain version on the card; the examples' prompts and
+   sequences (64, 128) are at most ``block_q`` (512), which the model,
+   as the reference, computes with its whole-sequence scores, not the
+   flash kernel. Each example's wall and launches by kernel.
 
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
@@ -620,10 +635,16 @@ def plain_kernels():
 
 
 @contextlib.contextmanager
-def counting_plain_calls():
+def counting_plain_calls(whole_queries=None):
     """Count every call of a plain path the model could take instead of a
     kernel (the kernels' plain versions, the plain attention cores, the
-    chunked scan); yields a one-element list holding the count."""
+    chunked scan); yields a one-element list holding the count.
+
+    With ``whole_queries`` (a list; phase 18) the closed loop's plain
+    version is counted too, and the model's whole-sequence attention
+    scores are not: the query length of each of their calls is appended
+    to ``whole_queries`` instead, for the caller to hold to ``block_q``."""
+    from repro_torch.kernels.closed_loop import ref as CR
     from repro_torch.kernels.decode_attention import ops as DO
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.selective_scan import ops as SO
@@ -634,6 +655,10 @@ def counting_plain_calls():
     patched = [(FO, "attention_ref"), (DO, "decode_partials_ref"),
                (A, "_score_block"), (A, "_score_block_grouped"),
                (SO, "selective_scan_ref"), (MB, "_chunked_scan")]
+    apart = ()
+    if whole_queries is not None:
+        patched.append((CR, "closed_loop_ref"))
+        apart = ("_score_block", "_score_block_grouped")
     saved = [getattr(m, n) for m, n in patched]
 
     def counted(fn):
@@ -642,8 +667,14 @@ def counting_plain_calls():
             return fn(*a, **kw)
         return wrapped
 
+    def recorded(fn):
+        def wrapped(qb, *a, **kw):
+            whole_queries.append(qb.shape[1])
+            return fn(qb, *a, **kw)
+        return wrapped
+
     for (m, n), fn in zip(patched, saved):
-        setattr(m, n, counted(fn))
+        setattr(m, n, recorded(fn) if n in apart else counted(fn))
     try:
         yield plain
     finally:
@@ -3720,6 +3751,305 @@ def dryrun_phase(smi, run: dict) -> None:
           f"which {waited:.1f} s after phase 16; on {smi}")
 
 
+# ---- phase 18: the four examples on the card ------------------------------
+# Card against CPU, the same `draw_noise` streams on both. float32 exp /
+# log may differ by an ulp or two between CUDA and the CPU, so a
+# campaign mean moves ~1e-7; Gauss-Newton's argmin over its step sizes can
+# carry that further (the port's fit against the reference's at 1e-4 on
+# the CPU), and the PI loop feeds each ulp back for 60 periods. The
+# closed-loop kernel against the CPU's plain version is held to its parity
+# bar (`parity.py`): completion steps equal, energy at rtol 1e-5.
+EX_MEAN_RTOL = 1e-5      # campaign means, energy, the fleet's means
+EX_RAPL_B_ATOL = 1e-3    # W: the RAPL intercept carries the means' error
+EX_FIT_RTOL = 1e-3       # K_L, alpha, beta of the Gauss-Newton fit
+EX_R2_RTOL = 1e-5
+EX_CAP_RTOL = 1e-4       # the quickstart's cap trajectory
+EX_TAU_RTOL = 1e-5
+EX_ERR_RTOL = 1e-3       # the adaptive demo's tracking error
+# the adaptive demo's NRM runs on the scan engine, whose cost is its step
+# bucket whatever the work: the card runs the example's own max_time
+# 3,600 s (4,096 steps, ~4 ms a step), its CPU copy 256 s (256 steps).
+# Every run completes within 62 s; on the CPU the two buckets give the
+# same numbers bit for bit
+# (`tests/test_torch_examples.py::test_adaptive_cut_changes_no_number`)
+EX_ADAPT_CPU_MAX_TIME = 256.0
+# the serve example's logits, kernel path against the kernels' plain
+# versions and the model's plain path on its weights and tokens: float32
+# (`--reduced`), so the paths differ in summation order only (phase 10's
+# float32 bar)
+EX_LOGITS_REL_TOL = 1e-4
+
+
+def _ex_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _ex_counts() -> dict:
+    from repro_torch.kernels.closed_loop import kernel as K
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.selective_scan import kernel as SK
+    return {"closed_loop_seeds": K.ROUTE_LAUNCHES["seeds"],
+            "closed_loop_tensor": K.ROUTE_LAUNCHES["noise"],
+            "flash_wgmma": FK.ROUTE_LAUNCHES["wgmma"],
+            "flash_simt": FK.ROUTE_LAUNCHES["simt"],
+            "decode": DK.LAUNCHES, "scan": SK.LAUNCHES}
+
+
+@contextlib.contextmanager
+def _ex_counted(tag: str, launches: dict):
+    """Runs one example's step on the card: kernel launches by kernel
+    (into ``launches``) and no call of a kernel's plain version (the
+    attention and scan kernels', the chunked scan, the closed loop's).
+    The model's whole-sequence attention scores are counted apart, into
+    ``launches``: the port, as the reference
+    (`repro/models/attention.py:149,181`), computes a sequence of at most
+    ``block_q`` queries with them and not with the flash kernel, and each
+    such call must hold at most ``block_q`` queries, or it stood in for
+    the kernel. The step's standard output is printed after it with a
+    ``[examples] <tag> |`` prefix."""
+    import io
+
+    from repro_torch.models.types import ApplyOptions
+    before = _ex_counts()
+    lengths = []
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with counting_plain_calls(lengths) as plain, \
+                contextlib.redirect_stdout(out):
+            yield
+    finally:
+        for line in out.getvalue().splitlines():
+            print(f"[examples] {tag} | {line}")
+    after = _ex_counts()
+    launches.update({k: after[k] - before[k] for k in after})
+    launches["wall_s"] = time.perf_counter() - t0
+    launches["whole_attention"] = len(lengths)
+    block_q = ApplyOptions().block_q
+    check(plain[0] == 0, f"{tag}: {plain[0]} calls of a kernel's plain "
+          f"version on the card")
+    check(all(n <= block_q for n in lengths), f"{tag}: whole-sequence "
+          f"attention over {max(lengths, default=0)} queries, more than block_q "
+          f"{block_q}: the flash kernel's shapes")
+
+
+def _ex_launch_line(launches: dict) -> str:
+    line = ", ".join(f"{k} {v}" for k, v in launches.items()
+                     if k not in ("wall_s", "whole_attention") and v)
+    line = line or "no kernel launch"
+    if launches["whole_attention"]:
+        line += (f" ({launches['whole_attention']} whole-sequence "
+                 f"attention calls)")
+    return line
+
+
+def _ex_fit_diffs(card, cpu) -> dict:
+    return {"a": _ex_rel(card.a, cpu.a), "b_abs": abs(card.b - cpu.b),
+            "K_L": _ex_rel(card.K_L, cpu.K_L),
+            "alpha": _ex_rel(card.alpha, cpu.alpha),
+            "beta": _ex_rel(card.beta, cpu.beta),
+            "r2": _ex_rel(card.r2, cpu.r2)}
+
+
+def _ex_check_fit(tag: str, d: dict) -> None:
+    check(d["a"] <= EX_MEAN_RTOL and d["b_abs"] <= EX_RAPL_B_ATOL
+          and max(d["K_L"], d["alpha"], d["beta"]) <= EX_FIT_RTOL
+          and d["r2"] <= EX_R2_RTOL, f"{tag}: card against CPU fit {d}")
+
+
+def examples_phase(dev, smi) -> None:
+    """Phase 18: the reference's four examples through the port's
+    `repro_torch.examples`, on the card: each step's launches by kernel
+    and no plain-version call; quickstart and identify_and_control also
+    on the CPU in this process, the card held to it; the serve example's
+    tokens equal without and with ``--power``; the train example killed
+    at step 100, resumed from its step-80 checkpoint at step 81 to a lower
+    loss, no process group left."""
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.examples import identify_and_control as ic
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.examples import serve_batched, train_micro_lm
+    from repro_torch.launch import serve
+    from repro_torch.models import ApplyOptions, init_params
+
+    started = time.perf_counter()
+    walls = {}
+
+    # ---- quickstart -------------------------------------------------
+    lq = {}
+    with _ex_counted("quickstart", lq):
+        card = qs.main(dev)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # the card printed it
+        cpu = qs.main("cpu")
+    cpu_wall = time.perf_counter() - t0
+    d = {"means": max(_ex_rel(card["power_means"], cpu["power_means"]),
+                      _ex_rel(card["progress_means"],
+                              cpu["progress_means"])),
+         "pcap": _ex_rel(card["pcap"], cpu["pcap"]),
+         "energy": _ex_rel(card["energy_controlled"],
+                           cpu["energy_controlled"]),
+         **_ex_fit_diffs(card["fit"], cpu["fit"])}
+    check(d["means"] <= EX_MEAN_RTOL and d["pcap"] <= EX_CAP_RTOL
+          and d["energy"] <= EX_MEAN_RTOL, f"quickstart card against CPU "
+          f"{d}")
+    _ex_check_fit("quickstart", d)
+    check(card["gains"] == dataclasses.replace(
+        cpu["gains"], device=card["gains"].device),
+        "quickstart: the gains differ between card and CPU")
+    walls["quickstart"] = lq["wall_s"]
+    print(f"[examples] quickstart: card {lq['wall_s']:.2f} s, CPU "
+          f"{cpu_wall:.2f} s; {_ex_launch_line(lq)}; card against CPU: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+          + "; gains equal")
+
+    # ---- identify_and_control ---------------------------------------
+    li, ls, la, lf = {}, {}, {}, {}
+    ident, ident_cpu = {}, {}
+    with _ex_counted("identify_and_control", li):
+        print("identification (Table 2 recovery):")
+        noise = qs.port_noise(ic.SEED, ic.IDENTIFY_PERIODS, dev)
+        for name in ic.CLUSTERS:
+            ident[name] = ic.identify(name, noise)
+    with _ex_counted("identify_and_control", ls):
+        sw = ic.eps_sweep(device=dev)
+    with _ex_counted("identify_and_control", la):
+        ad = ic.adaptive_demo(dev)
+    with _ex_counted("identify_and_control", lf):
+        fl = ic.fleet_demo(dev)
+    check(ls["closed_loop_seeds"] >= 1 and ls["closed_loop_tensor"] == 0,
+          f"eps_sweep launches {ls}: a seeds-route closed-loop launch "
+          f"expected")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        noise = qs.port_noise(ic.SEED, ic.IDENTIFY_PERIODS, "cpu")
+        for name in ic.CLUSTERS:
+            ident_cpu[name] = ic.identify(name, noise)
+        sw_cpu = ic.eps_sweep(device="cpu")
+        ad_cpu = ic.adaptive_demo("cpu", max_time=EX_ADAPT_CPU_MAX_TIME)
+        fl_cpu = ic.fleet_demo("cpu")
+    cpu_wall = time.perf_counter() - t0
+    d = {}
+    for name in ic.CLUSTERS:
+        c, p = ident[name], ident_cpu[name]
+        dn = {"means": max(_ex_rel(c["power_means"], p["power_means"]),
+                           _ex_rel(c["progress_means"],
+                                   p["progress_means"])),
+              "tau": _ex_rel(c["tau"], p["tau"]),
+              **_ex_fit_diffs(c["fit"], p["fit"])}
+        check(dn["means"] <= EX_MEAN_RTOL and dn["tau"] <= EX_TAU_RTOL,
+              f"identify {name} card against CPU {dn}")
+        _ex_check_fit(f"identify {name}", dn)
+        for k, v in dn.items():
+            d[k] = max(d.get(k, 0.0), v)
+    d["sweep_time_abs"] = float(np.max(np.abs(np.subtract(
+        sw["time"], sw_cpu["time"]))))
+    d["sweep_energy"] = _ex_rel(sw["energy"], sw_cpu["energy"])
+    check(d["sweep_time_abs"] == 0.0 and d["sweep_energy"] <= 1e-5,
+          f"eps_sweep card against CPU: {sw} vs {sw_cpu}")
+    check(np.all(np.diff(sw["time"]) > 0)
+          and np.all(np.diff(sw["energy"]) < 0),
+          f"eps_sweep: no trade-off {sw}")
+    d["adaptive_error"] = max(_ex_rel(ad[a]["error"], ad_cpu[a]["error"])
+                              for a in ad)
+    d["adaptive_time_abs"] = max(abs(ad[a]["time"] - ad_cpu[a]["time"])
+                                 for a in ad)
+    check(d["adaptive_error"] <= EX_ERR_RTOL
+          and d["adaptive_time_abs"] <= 1.0,
+          f"adaptive_demo card against CPU: {ad} vs {ad_cpu}")
+    check(max(ad_cpu[a]["time"] for a in ad) < EX_ADAPT_CPU_MAX_TIME,
+          f"adaptive_demo: a CPU run did not complete {ad_cpu}")
+    d["fleet"] = max(_ex_rel(fl[k], fl_cpu[k]) for k in fl)
+    check(d["fleet"] <= EX_MEAN_RTOL, f"fleet_demo card against CPU: "
+          f"{fl} vs {fl_cpu}")
+    walls["identify_and_control"] = sum(x["wall_s"]
+                                        for x in (li, ls, la, lf))
+    print(f"[examples] identify_and_control: card "
+          f"{walls['identify_and_control']:.2f} s (identify "
+          f"{li['wall_s']:.2f}, eps_sweep {ls['wall_s']:.2f}, "
+          f"adaptive_demo {la['wall_s']:.2f} at max_time 3600 s, fleet_demo "
+          f"{lf['wall_s']:.2f}), CPU {cpu_wall:.2f} s (adaptive_demo at "
+          f"max_time {EX_ADAPT_CPU_MAX_TIME:.0f} s); launches: identify "
+          f"{_ex_launch_line(li)}; "
+          f"eps_sweep {_ex_launch_line(ls)}; adaptive_demo "
+          f"{_ex_launch_line(la)}; fleet_demo {_ex_launch_line(lf)}; card "
+          f"against CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in d.items()))
+
+    # ---- serve_batched ----------------------------------------------
+    lv = {}
+    with _ex_counted("serve_batched", lv):
+        sv = serve_batched.main(dev)
+    # prompts of 64 <= block_q: the prefill's attention is the model's
+    # whole-sequence scores, as in the reference; the decode kernel serves
+    # every generated token
+    check(lv["decode"] >= 1, f"serve_batched launches {lv}: decode "
+          f"expected")
+    check(np.array_equal(sv["off"]["generated"], sv["on"]["generated"]),
+          "serve_batched: tokens differ without and with --power")
+    walls["serve_batched"] = lv["wall_s"]
+    # both runs went through the decode kernel: hold its path against the
+    # kernels' plain versions and the model's plain path at the example's
+    # own shapes (head_dim 16, a 160-slot cache), prefill and every
+    # teacher-forced decode step
+    t0 = time.perf_counter()
+    cfg = reduced(get_config(serve_batched.ARCH))
+    params = init_params(cfg, 0, dev)
+    batch = serve.make_prompts(cfg, serve_batched.BATCH,
+                               serve_batched.PROMPT_LEN, 0, dev)
+    series, same = compare_paths(cfg, params, batch, serve_batched.GEN,
+                                 sv["off"]["generated"],
+                                 ApplyOptions(attn_impl="cuda"),
+                                 ApplyOptions(attn_impl="reference"))
+    del params, batch
+    print_comparison("examples", series, same, sv["off"]["generated"].size,
+                     EX_LOGITS_REL_TOL, "attn_impl 'reference'")
+    check(worst_kernel_err(series) <= EX_LOGITS_REL_TOL,
+          f"serve_batched kernel-path logits rel L2 err "
+          f"{worst_kernel_err(series)} > {EX_LOGITS_REL_TOL}")
+    print(f"[examples] serve_batched: card {lv['wall_s']:.2f} s "
+          f"({sv['off']['wall_s']} s + {sv['on']['wall_s']} s); "
+          f"{_ex_launch_line(lv)}; greedy tokens {sv['off']['generated'].shape}"
+          f" equal without and with --power; simulated v5e-chip plant: "
+          f"{sv['off']['tok_per_s_sim']} -> {sv['on']['tok_per_s_sim']} "
+          f"tok/s, energy {sv['on']['energy_j']} J, final cap "
+          f"{sv['on']['final_pcap']} W; three paths compared in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- train_micro_lm ---------------------------------------------
+    lt = {}
+    with _ex_counted("train_micro_lm", lt):
+        tr = train_micro_lm.main(dev)
+    # sequences of 128 <= block_q: whole-sequence attention, as in the
+    # reference (the flash op trains at 2,048 tokens in phase 16)
+    check(lt["whole_attention"] >= 1, f"train_micro_lm: {lt}")
+    check(tr["exit_code"] == 17 and tr["restored_step"] == 80
+          and tr["start_step"] == 81
+          and tr["steps"] == train_micro_lm.STEPS - 81
+          and tr["final_loss"] < tr["first_loss"],
+          f"train_micro_lm: {tr['exit_code']} {tr['restored_step']} "
+          f"{tr['start_step']} {tr['steps']} {tr['first_loss']} "
+          f"{tr['final_loss']}")
+    check(not torch.distributed.is_initialized(),
+          "train_micro_lm left a process group up")
+    walls["train_micro_lm"] = lt["wall_s"]
+    print(f"[examples] train_micro_lm: card {lt['wall_s']:.2f} s; "
+          f"{_ex_launch_line(lt)}; killed with exit 17 at step 100, "
+          f"restored step {tr['restored_step']}, resumed at "
+          f"{tr['start_step']}; loss {tr['first_loss']:.4f} -> "
+          f"{tr['final_loss']:.4f}; resumed run {tr['wall_s']:.2f} s "
+          f"({tr['steps']} steps); no process group left")
+    print(f"[examples] phase 18 in {time.perf_counter() - started:.1f} s "
+          f"(card walls " + ", ".join(f"{k} {v:.2f} s"
+                                     for k, v in walls.items())
+          + f"); on {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4058,6 +4388,7 @@ def main() -> int:
         stop_dryrun(dry)
         raise
     dryrun_phase(smi, dry)                                # phase 17
+    examples_phase(dev, smi)                              # phase 18
 
     # `host_mesh` destroyed the one-rank group each entry point started:
     # no group outlives its run

@@ -4,8 +4,9 @@ versions on the card, the inputs for them, and the bar.
 Used by `tests/test_torch_cuda.py` and `chip_smoke.py`. The cases are
 `tests/test_kernels.py`'s, plus head_dim 120 (h2o-danube-3-4b), ragged
 lengths, a sliding window narrower than a KV tile (rows whose first
-visited tile is fully masked), the qwen3-8b serving shapes and the
-starcoder2-3b training shape.
+visited tile is fully masked), the qwen3-8b serving shapes, the
+starcoder2-3b training shape and the decode shapes of the serve example
+(`repro_torch.examples.serve_batched`, head_dim 16).
 
 Tolerance, and why: float32 2e-5 absolute and relative (the kernels and
 the plain versions sum in different orders); bfloat16 2e-2 (the output
@@ -61,6 +62,10 @@ DECODE_CASES = [
     (2, 100, 8, 2, 120, 170, True, None, "bfloat16"),  # ring wrapped, hd 120
     (3, 1000, 16, 1, 128, 700, False, 96, "float32"),  # G = 16, ragged
     (1, 512, 8, 2, 64, 400, False, 32, "bfloat16"),  # bf16, 16 splits
+    # the serve example (starcoder2-3b --reduced, batch 4, 64 + 96
+    # tokens): its first decode step (two splits empty) and its last
+    (4, 160, 4, 2, 16, 64, False, 32, "float32"),
+    (4, 160, 4, 2, 16, 159, False, 32, "float32"),
 ]
 # qwen3-8b decode, batch 8, the last step of a 1,024 + 32 serve
 DECODE_SERVE = (8, 1056, 32, 8, 128, 1055, False, None, "bfloat16")

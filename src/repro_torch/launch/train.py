@@ -75,7 +75,9 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig, *,
     Returns `main`'s result dict: the reference's keys, and
     ``step_wall_s`` (each step's wall), ``pcaps`` (the cap after each
     control period), ``nrm_wall_s`` (host time in the NRM; None
-    without ``power``), ``mesh`` (the host mesh, `launch.mesh.describe`)
+    without ``power``), ``restored_step`` (the checkpoint a resume
+    restored; None otherwise), ``start_step`` (the first step run),
+    ``mesh`` (the host mesh, `launch.mesh.describe`)
     and ``dtensor_leaves`` (params placed as DTensors; 0 on one rank)."""
     dev = resolve_device(device)
     opts = ApplyOptions(attn_impl="cuda", scan_impl="chunked")
@@ -100,10 +102,11 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig, *,
         nrm = NRM(pc_cfg, device=dev) if power else None
 
         mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
-        start_step = 0
+        start_step, restored = 0, None
         if mgr and resume and mgr.latest_step() is not None:
-            tree, extra = mgr.restore(template={"params": params,
-                                                "opt": opt_state})
+            restored = mgr.latest_step()
+            tree, extra = mgr.restore(restored, template={"params": params,
+                                                          "opt": opt_state})
             params, opt_state = tree["params"], tree["opt"]
             it.load_state_dict(extra["data"])
             if nrm:
@@ -180,6 +183,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig, *,
             "final_loss": losses[-1] if losses else float("nan"),
             "first_loss": losses[0] if losses else float("nan"),
             "steps": tcfg.total_steps - start_step,
+            "restored_step": restored,
+            "start_step": start_step,
             "wall_s": time.time() - t_wall0,
             "sim_time_s": sim_time,
             "energy_j": energy,

@@ -268,3 +268,118 @@ def test_training_entry_points_refuse_to_run_without_cuda(tmp_path):
     for make in makers:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+# ---- the package-level names, the examples, the port's completeness ----
+
+EXAMPLES = ("quickstart", "identify_and_control", "serve_batched",
+            "train_micro_lm")
+
+
+def _reexported(init: Path):
+    """The names a reference package's ``__init__.py`` re-exports (its
+    ``from ... import`` lines), read without importing it, so no jax."""
+    return sorted(a.asname or a.name
+                  for node in ast.parse(init.read_text()).body
+                  if isinstance(node, ast.ImportFrom)
+                  for a in node.names)
+
+
+@pytest.mark.parametrize("pkg,count", [("core", 37), ("data", 2)])
+def test_package_names_mirror_the_reference(pkg, count):
+    """``from repro_torch.<pkg> import <name>`` works for each name
+    ``repro.<pkg>`` exports, in a fresh process that loads no jax and no
+    `repro`, each name from the port's module of the same name."""
+    names = _reexported(ROOT / "src" / "repro" / pkg / "__init__.py")
+    assert len(names) == count
+    code = (f"import sys\nfrom repro_torch.{pkg} import {', '.join(names)}\n"
+            f"import repro_torch.{pkg} as p\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            f"bad += [n for n in {names!r} if not getattr(getattr(p, n), "
+            "'__module__', 'repro_torch.').startswith('repro_torch.')]\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_kernel_modules_import_first_without_a_cycle():
+    """The kernels import `core.plant` and `core.plane`, and `core.sim`
+    imports the kernels: each kernel module imports on its own, first in
+    a fresh process."""
+    mods = ["repro_torch.kernels.closed_loop",
+            "repro_torch.kernels.closed_loop.ref",
+            "repro_torch.kernels.closed_loop.kernel",
+            "repro_torch.kernels.closed_loop.parity",
+            "repro_torch.core.plant", "repro_torch.core.sim"]
+    for m in mods:
+        out = subprocess.run([sys.executable, "-c", f"import {m}"],
+                             cwd=ROOT, env={**os.environ, "PYTHONPATH":
+                                            str(ROOT / "src")},
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, (m, out.stderr[-2000:])
+
+
+def test_examples_import_no_jax_and_no_reference():
+    code = ("import sys\n"
+            + "".join(f"import repro_torch.examples.{e}\n" for e in EXAMPLES)
+            + "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_refuse_to_run_without_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main()
+
+
+def test_example_command_line_runs_on_the_cpu():
+    """``python -m repro_torch.examples.quickstart --device cpu`` prints
+    the reference example's lines; without ``--device`` it raises."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    argv = [sys.executable, "-m", "repro_torch.examples.quickstart"]
+    out = subprocess.run(argv + ["--device", "cpu"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert [ln.split(":")[0] for ln in lines[:2]] == ["identified",
+                                                      "PI gains"]
+    assert len(lines) == 9 and lines[-1].startswith("energy: controlled=")
+    if not torch.cuda.is_available():
+        out = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=300)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_every_reference_module_and_example_has_its_port():
+    """Each ``src/repro/**.py`` has its ``src/repro_torch/`` counterpart
+    and each ``examples/X.py`` its ``src/repro_torch/examples/X.py``.
+    Excepted by name: ``benchmarks/``, which the port's first benchmark
+    work ports, not the bring-up."""
+    ref = ROOT / "src" / "repro"
+    port = ROOT / "src" / "repro_torch"
+    missing = [str(p.relative_to(ref)) for p in sorted(ref.rglob("*.py"))
+               if not (port / p.relative_to(ref)).exists()]
+    missing += [f"examples/{p.name}"
+                for p in sorted((ROOT / "examples").glob("*.py"))
+                if not (port / "examples" / p.name).exists()]
+    assert missing == []
+    assert sorted(p.stem for p in (ROOT / "examples").glob("*.py")) == \
+        sorted(EXAMPLES)
