@@ -167,17 +167,24 @@ Phases, each of which fails the run if a check fails:
    prints its wall, its launches a step or a tick, the device's idle
    share and its peak memory.
 16. training on the card (`[train]` lines), through the flash kernel's
-   forward and the recompute backward through its plain version: (a)
-   the differentiable flash op at starcoder2-3b's training shape, bf16
-   and float32, its forward at phase 6's bar and dq / dk / dv against
-   the plain route's autograd, the backward's time beside SDPA's; (c)
-   starcoder2-3b widths x 2 layers in float32, the loss and every grad
-   leaf of the kernel path against the plain path, flash launches
-   under remat full / dots / none; (b) starcoder2-3b at full width and
-   depth, `make_train_step` at batch 4 x 2,048 for 6 steps (the first
-   step's loss and grad norm against the plain path, 60 flash launches
-   a step, the loss falling, step wall, tokens/s, peak memory, a
-   profile by part, the step's bound); (d) `launch/train.train` with
+   forward (writing the rows' log-sum-exp) and the flash backward's
+   kernels: (a) the differentiable flash op at starcoder2-3b's training
+   shape, bf16 and float32, its forward at phase 6's bar, its lse, and
+   dq / dk / dv of one backward-kernel call (no plain recompute) against
+   the plain route's autograd in float32 (bf16: within twice the plain
+   route's own bf16 floor, printed; a backward losing one key tile read
+   beside the bar), the backward's time a layer with each launch's,
+   beside SDPA's backward, the plain version's, the plain route's
+   autograd and the bound; (c) starcoder2-3b widths x 2 layers in
+   float32, the loss and every grad leaf of the kernel path (the SIMT
+   backward) against the plain path, flash launches and backward-kernel
+   calls under remat
+   full / dots / none; (b) starcoder2-3b at full width and depth,
+   `make_train_step` at batch 4 x 2,048 for 6 steps (the first step's
+   loss and grad norm against the plain path, 60 flash launches and 30
+   backward-kernel calls a step, no plain recompute, the loss falling,
+   step wall, tokens/s, peak memory, a profile by part, the step's
+   bound); (d) `launch/train.train` with
    the NRM in the loop for 12 steps (energy, simulated time, the caps,
    the NRM's host ms a step); (e) `python -m repro_torch.launch.train
    --kill-at 10` in a child on the card (exit 17), its checkpoint
@@ -350,12 +357,15 @@ def rel_err(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def hopper_paths(wgmma_lib, decode_lib) -> None:
+def hopper_paths(wgmma_lib, bwd_lib, decode_lib) -> None:
     """The built SASS of the attention kernels: the bf16 flash kernel (both
     head-dim instances) issues warpgroup products (HGMMA) and TMA loads
-    (UTMALDG); the decode kernels (bf16 and float32 at hd 128) copy the
-    cache with 16-byte loads only (LDGSTS ... .128), and the bf16 one
-    multiplies on the tensor cores (HMMA)."""
+    (UTMALDG); the bf16 flash backward's dK / dV and dQ kernels (both
+    head-dim instances) multiply on the tensor cores (HMMA) and stage
+    their tiles with 16-byte asynchronous copies (LDGSTS ... .128); the
+    decode kernels (bf16 and float32 at hd 128) copy the cache with
+    16-byte loads only (LDGSTS ... .128), and the bf16 one multiplies on
+    the tensor cores (HMMA)."""
     from repro_torch.kernels import sass
     for hdp in (64, 128):
         ops = sass.opcodes(sass.kernel_instructions(
@@ -367,6 +377,19 @@ def hopper_paths(wgmma_lib, decode_lib) -> None:
         print(f"[setup] flash_fwd_wgmma_kernel<{hdp}> SASS: {hgmma} HGMMA ("
               + ", ".join(sorted(op for op in ops if op.startswith("HGMMA.")))
               + f"), {tma} UTMALDG")
+    for part in ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+        for hdp in (64, 128):
+            ops = sass.opcodes(sass.kernel_instructions(
+                bwd_lib, f"{part}ILi{hdp}E"))
+            hmma = sum(n for op, n in ops.items() if op.startswith("HMMA."))
+            copies = {op: n for op, n in ops.items()
+                      if op.startswith("LDGSTS")}
+            check(hmma > 0 and any(op.endswith(".128") for op in copies),
+                  f"{part}<{hdp}>: {hmma} HMMA, copies {copies}")
+            print(f"[setup] {part}<{hdp}> SASS: {hmma} HMMA ("
+                  + ", ".join(sorted(op for op in ops
+                                     if op.startswith("HMMA.")))
+                  + f"), tile copies {copies}")
     for part in ("decode_attention_mma_kernelILi128E",
                  "decode_attention_kernelIfLi128ELi4E"):
         ops = sass.opcodes(sass.kernel_instructions(decode_lib, part))
@@ -978,9 +1001,14 @@ def attention_timings(dev, serving, errs) -> list:
     f_lib_call = cuda_ms(flash_lib, reps=20, warmup=3)
     f_plain = cuda_ms(lambda: FR.attention_ref(q, k, v), reps=5, warmup=1)
     q32, k32, v32 = (x.float() for x in (q, k, v))
-    f32_ms = device_ms(lambda: FK.flash_attention_cuda(q32, k32, v32),
-                       reps=5, warmup=1)
-    del q32, k32, v32
+    qt32, kt32, vt32 = (x.float() for x in (qt, kt, vt))
+    f32_ms, f32_lib = in_turns(
+        lambda: FK.flash_attention_cuda(q32, k32, v32),
+        lambda: F.scaled_dot_product_attention(qt32, kt32, vt32,
+                                               is_causal=True,
+                                               enable_gqa=True),
+        reps=5, warmup=1)
+    del q32, k32, v32, qt32, kt32, vt32
     f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     # causal: each row attends to its own prefix, S (S + 1) / 2 pairs, and
     # each pair costs 2 hd flops in Q K^T and 2 hd in P V
@@ -1002,7 +1030,9 @@ def attention_timings(dev, serving, errs) -> list:
           f"{f_ms / f_lib:.3f}")
     print(f"[time] flash_attention SIMT route, float32 at the same shape: "
           f"{f32_ms:.4f} ms on the card; its floor {f32_bound:.4f} ms (the "
-          f"flops at the float32 rate outside the tensor cores)")
+          f"flops at the float32 rate outside the tensor cores); "
+          f"scaled_dot_product_attention in float32 {f32_lib:.4f} ms "
+          f"(kernel / SDPA {f32_ms / f32_lib:.3f})")
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1012,7 +1042,8 @@ def attention_timings(dev, serving, errs) -> list:
         "max_abs_err": errs["flash_attention"], "ms": f_ms,
         "plain_ms": f_plain, "bound_ms": f_bound,
         "bound_by": "operations" if f_ops_ms >= f_bytes_ms else "bytes",
-        "library_ms": f_lib})
+        "library_ms": f_lib, "float32_ms": f32_ms,
+        "float32_library_ms": f32_lib})
     del q, k, v, qt, kt, vt
 
     # split-KV decode, one decode layer (partials and combine, one call);
@@ -3040,8 +3071,7 @@ def fleet_plane_phase(dev, serve7, serve14, smi) -> None:
 # (8,192 tokens a step): 6.4 GB of bf16 params, 6.4 GB of grads, 25.4 GB
 # of fp32 moments, plus activations (the 30 layer inputs under
 # remat="full", the logits, one layer's recompute and its attention
-# backward through the plain version: a few [4, 24, 2,048, 2,048] float32
-# score tensors), about 55 GB at the peak
+# backward, which keeps o and the rows' log-sum-exp, no score tensor)
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "starcoder2-3b", 4, 2048, 6
 # Adam moves every weight by ~lr a step from the first: at 3e-4 (1.5% of
 # the weights' 0.02 scale) the full-width loss fell 11.39 -> 6.00 in one
@@ -3113,7 +3143,9 @@ def annotated_train_step():
 def train_breakdown(fn, label: str):
     """Device time of one call of ``fn`` by part, from `torch.profiler`:
     kernels launched inside a `phase16:` range go to that range's part,
-    the rest by name (flash forward, GEMMs, other). Returns (parts in ms,
+    the rest by name (flash forward and backward, GEMMs, other; the
+    flash kernels' launches come from a C library, so the profiler ties
+    them to no range). Returns (parts in ms,
     wall ms), or None where the profiler gives no device events. A
     reading, not a check."""
     import torch
@@ -3142,6 +3174,7 @@ def train_breakdown(fn, label: str):
                     continue  # a range's own span on the device
                 part = tag or (
                     "flash forward" if "flash_fwd" in name else
+                    "flash backward" if "flash_bwd" in name else
                     "GEMMs" if any(w in name for w in (
                         "gemm", "cutlass", "xmma", "nvjet", "sm90"))
                     else "other")
@@ -3163,62 +3196,164 @@ def train_breakdown(fn, label: str):
         return None
 
 
+def _bwd_bound(case):
+    """(bound ms, bound by, flops, bytes) of the flash backward at a
+    FLASH_CASES-style case: the five products per visible (query, key)
+    pair that dq, dk and dv need (S, dP, dV, dK, dQ; causal: S (S + 1) /
+    2 pairs a head) at the bf16 tensor rate or, for float32, the rate
+    outside the tensor cores; its bytes q, k, v, o, dO and lse read once
+    and dq, dk, dv written once."""
+    B, S, H, K, hd, causal, window, dtype = case
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flops = 5 * 2 * B * H * hd * pairs
+    size = 2 if dtype == "bfloat16" else 4
+    n_bytes = (4 * B * S * H * hd + 4 * B * S * K * hd) * size + B * H * S * 4
+    rate = BF16_PER_S if dtype == "bfloat16" else FP32_PER_S
+    ops_ms, bytes_ms = flops / rate * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, n_bytes)
+
+
+def _bwd_launch_ms(call, reps=5):
+    """Device ms of the backward's three launches (D, dK / dV, dQ) in one
+    call of ``call(events)``, from CUDA events the wrapper records around
+    them: the mean over ``reps`` calls."""
+    import torch
+    out = [0.0, 0.0, 0.0]
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        call(ev)
+        torch.cuda.synchronize()
+        for i in range(3):
+            out[i] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return dict(zip(("D", "dK / dV", "dQ"), out))
+
+
 def flash_op_phase(dev) -> dict:
     """Phase 16 (a): the differentiable flash op at the training shape,
     bf16 and float32: the forward against `attention_ref` at phase 6's
-    bar, dq/dk/dv against the plain route's autograd on the same (q, k,
-    v, g), and the backward's time beside SDPA's backward."""
+    bar and its row log-sum-exp against `attention_lse_ref`; the backward
+    kernels (one call, no plain recompute) held to the plain route's
+    autograd in float32 on the same inputs at `attention_cases.
+    bwd_readings`' bars (bf16: twice the plain route's own bf16 floor),
+    a broken variant (one key tile's dK / dV lost) read beside the bar;
+    the backward's time a layer with each launch's device time, beside
+    SDPA's backward, the plain version's (`attention_bwd_ref`), the plain
+    route's autograd through `attention_ref` and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_cases as AC
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.timing import device_ms, in_turns
 
     out = {}
     for case in (AC.FLASH_TRAIN, AC.FLASH_TRAIN_F32):
-        dtype = case[-1]
+        B, S, H, K, hd, causal, window, dtype = case
         qkv = [x.requires_grad_() for x in AC.flash_inputs(case, dev)]
-        g = torch.randn(qkv[0].shape, generator=torch.Generator(
-        ).manual_seed(5)).to(dev, qkv[0].dtype)
-        before = FK.LAUNCHES
+        q, k, v = (x.detach() for x in qkv)
+        g = AC.grad_output(q, seed=5)
+        before, bwd_before = FK.LAUNCHES, FK.BWD_LAUNCHES
         o = FO.flash_attention(*qkv, causal=True)
         check(FK.LAUNCHES == before + 1, f"flash op {case}: no launch")
-        plain = [x.detach().requires_grad_() for x in qkv]
-        o_ref = FR.attention_ref(*plain, causal=True)
-        err = float((o.detach().float() - o_ref.detach().float()).abs().max())
-        check(torch.allclose(o.float(), o_ref.float(),
+        o_ref = FR.attention_ref(q, k, v, causal=True)
+        err = float((o.detach().float() - o_ref.float()).abs().max())
+        check(torch.allclose(o.detach().float(), o_ref.float(),
                              **AC.tolerance(dtype)),
               f"flash op {case}: forward max |kernel - plain| {err}")
-        got = torch.autograd.grad(o, qkv, g, retain_graph=True)
-        want = torch.autograd.grad(o_ref, plain, g, retain_graph=True)
-        same = [torch.equal(a, b) for a, b in zip(got, want)]
-        diffs = [float((a.float() - b.float()).abs().max())
-                 for a, b in zip(got, want)]
-        # both recompute through `attention_ref`: equal but for the order
-        # of the GQA reduction into dk and dv
-        check(all(d <= 1e-2 * float(b.float().abs().max())
-                  for d, b in zip(diffs, want)),
-              f"flash op {case}: grads against the plain route {diffs}")
-        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            o, qkv, g, retain_graph=True), reps=5, warmup=1)
-        qt = [x.detach().transpose(1, 2).contiguous().requires_grad_()
-              for x in qkv]
+        lse = torch.empty((B, H, S), device=dev)
+        FK.flash_attention_cuda(q, k, v, lse=lse)
+        lse_err = float((lse - FR.attention_lse_ref(q, k, v)[1]).abs().max())
+        check(lse_err <= 1e-5, f"flash op {case}: lse max err {lse_err}")
+        with counting_plain_calls() as plain:
+            got = torch.autograd.grad(o, qkv, g)
+            torch.cuda.synchronize()
+        check(FK.BWD_LAUNCHES == bwd_before + 1 and plain[0] == 0
+              and FK.LAUNCHES == before + 2,
+              f"flash op {case}: backward calls "
+              f"{FK.BWD_LAUNCHES - bwd_before}, plain calls {plain[0]}")
+        errs, floors, bars = AC.bwd_readings(q, k, v, g, got)
+        mid = S // 2 // FK.BWD_TILE * FK.BWD_TILE
+        broken, _, _ = AC.bwd_readings(q, k, v, g, AC.drop_key_tile(
+            got, slice(mid, mid + FK.BWD_TILE)))
+        want = AC.plain_route_grads(*(x.float() for x in (q, k, v)),
+                                    g.float())
+        max_abs = max(float((a.float() - b).abs().max())
+                      for a, b in zip(got, want))
+        del want
+        check(all(e <= b for e, b in zip(errs, bars)),
+              f"flash op {case}: backward {errs} over its bars {bars}")
+        check(broken[1] > bars[1] and broken[2] > bars[2],
+              f"flash op {case}: a lost key tile reads {broken}, under "
+              f"the bars {bars}")
+        what = ("max |kernel - plain| / max |plain|" if floors is None
+                else "relative L2 against the plain route in float32")
+        print(f"[train] flash op {case}: forward max |kernel - plain| "
+              f"{err:.3e} (bar {AC.tolerance(dtype)['atol']}), lse max err "
+              f"{lse_err:.2e} (bar 1e-05); backward: one call of the "
+              f"backward kernels ({FK.bwd_route(q.dtype, hd)} route), no "
+              f"plain recompute; {what}: "
+              + ", ".join(f"d{n} {e:.3e}" + (f" (floor {f:.3e}, bar "
+                                              f"{b:.3e})" if floors else
+                                              f" (bar {b:.0e})")
+                          for n, e, f, b in zip("qkv", errs, floors or
+                                                [None] * 3, bars))
+              + f"; a backward losing keys {mid}-{mid + FK.BWD_TILE - 1}'s "
+              f"dK / dV reads dk {broken[1]:.3e}, dv {broken[2]:.3e}")
+
+        # time: the kernels and SDPA's backward in turns, the plain
+        # version, and the plain route's autograd
+        o_k = FK.flash_attention_cuda(q, k, v, lse=lse)
+
+        def bwd_call(events=None):
+            FK.flash_attention_bwd_cuda(q, k, v, o_k, lse, g, events=events)
+
+        qt = [x.transpose(1, 2).contiguous().requires_grad_()
+              for x in (q, k, v)]
         ot = F.scaled_dot_product_attention(*qt, is_causal=True,
                                             enable_gqa=True)
         gt = g.transpose(1, 2).contiguous()
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(
-            ot, qt, gt, retain_graph=True), reps=5, warmup=1)
-        print(f"[train] flash op {case}: forward max |kernel - plain| "
-              f"{err:.3e} (bar {AC.tolerance(dtype)['atol']}); dq, dk, dv "
-              f"against the plain route's autograd: "
-              + ", ".join(f"d{n} {'bit-equal' if s else f'max diff {d:.3e}'}"
-                          for n, s, d in zip("qkv", same, diffs))
-              + f"; backward (recompute through attention_ref) "
-              f"{bwd_ms:.3f} ms a layer, SDPA's backward {lib_ms:.3f} ms")
+
+        def lib_call():
+            torch.autograd.grad(ot, qt, gt, retain_graph=True)
+
+        reps = dict(reps=5, warmup=1, rounds=3)
+        bwd_ms, lib_ms = in_turns(bwd_call, lib_call, **reps)
+        launches = _bwd_launch_ms(bwd_call)
+        plain_ms = device_ms(lambda: FR.attention_bwd_ref(
+            q, k, v, o_k, lse, g), **reps)
+        recompute_ms = device_ms(lambda: AC.plain_route_grads(q, k, v, g),
+                                 **reps)
+        bound, bound_by, flops, n_bytes = _bwd_bound(case)
+        # the layout the model hands the kernel under head-TP: K/V
+        # repeated to every head (G = 1)
+        kr, vr = (x.repeat_interleave(H // K, dim=2).contiguous()
+                  for x in (k, v))
+        g1_ms = device_ms(lambda: FK.flash_attention_bwd_cuda(
+            q, kr, vr, o_k, lse, g), **reps)
+        del kr, vr
+        rate = "bf16 tensor" if dtype == "bfloat16" else "float32 CUDA-core"
+        seven_ms = flops * 7 / 5 / (BF16_PER_S if dtype == "bfloat16"
+                                    else FP32_PER_S) * 1e3
+        print(f"[train] flash backward {case}: {bwd_ms:.4f} ms a layer on "
+              f"the card (" + ", ".join(f"{n} {t:.4f} ms"
+                                         for n, t in launches.items())
+              + f"); with K/V repeated to every head (G = 1) "
+              f"{g1_ms:.4f} ms; SDPA's backward {lib_ms:.4f} ms (kernels / "
+              f"SDPA {bwd_ms / lib_ms:.3f}); plain version "
+              f"(attention_bwd_ref) {plain_ms:.3f} ms; the plain "
+              f"route's autograd {recompute_ms:.3f} ms; bound "
+              f"{bound:.4f} ms by {bound_by} ({flops:.4g} flop, five "
+              f"products, at the {rate} rate; {n_bytes / 1e6:.1f} MB; the "
+              f"seven products this design does {seven_ms:.4f} ms), "
+              f"{100 * bound / bwd_ms:.1f}% of it, "
+              f"{flops / bwd_ms / 1e9:.1f} TFLOP/s")
         out[dtype] = {"bwd_ms": bwd_ms, "lib_bwd_ms": lib_ms,
-                      "bit_equal": all(same), "fwd_err": err}
-        del qkv, plain, o, o_ref, got, want, qt, ot
+                      "plain_ms": plain_ms, "recompute_ms": recompute_ms,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "max_abs_err": max_abs, "fwd_err": err}
+        del qkv, q, k, v, o, o_ref, got, qt, ot, gt, o_k, lse, g
         torch.cuda.empty_cache()
     return out
 
@@ -3243,20 +3378,25 @@ def train_f32_cut(dev) -> None:
     params = init_params(cfg, 2, dev)
     batch = next(TokenIterator(for_config(cfg, ShapeConfig(
         "t", "train", TRAIN_S, 2), seed=2), device=dev))
-    res, launches = {}, {}
+    res, launches, bwd = {}, {}, {}
     for impl in ("cuda", "blocked"):
-        FK.LAUNCHES = 0
+        FK.LAUNCHES = FK.BWD_LAUNCHES = 0
         FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        FK.BWD_ROUTE_LAUNCHES.update(mma=0, simt=0)
         res[impl] = value_and_grads(cfg, ApplyOptions(attn_impl=impl),
                                     params, batch)
-        launches[impl] = FK.LAUNCHES
-        check(impl != "cuda" or FK.ROUTE_LAUNCHES["simt"] == 4,
-              f"float32 flash routes {FK.ROUTE_LAUNCHES}")
+        launches[impl], bwd[impl] = FK.LAUNCHES, FK.BWD_LAUNCHES
+        check(impl != "cuda" or (FK.ROUTE_LAUNCHES["simt"] == 4
+                                 and FK.BWD_ROUTE_LAUNCHES["simt"] == 2),
+              f"float32 flash routes {FK.ROUTE_LAUNCHES}, backward "
+              f"{FK.BWD_ROUTE_LAUNCHES}")
     for remat in ("none", "dots"):
-        FK.LAUNCHES = 0
-        value_and_grads(dataclasses.replace(cfg, remat=remat),
-                        ApplyOptions(attn_impl="cuda"), params, batch)
-        launches[remat] = FK.LAUNCHES
+        FK.LAUNCHES = FK.BWD_LAUNCHES = 0
+        with counting_plain_calls() as plain:
+            value_and_grads(dataclasses.replace(cfg, remat=remat),
+                            ApplyOptions(attn_impl="cuda"), params, batch)
+        launches[remat], bwd[remat] = FK.LAUNCHES, FK.BWD_LAUNCHES
+        check(plain[0] == 0, f"remat {remat}: {plain[0]} plain calls")
     (lk, _, gk), (lp, _, gp) = res["cuda"], res["blocked"]
     l_err = abs(float(lk) - float(lp)) / abs(float(lp))
     g_errs = [rel_err(a, b) for a, b in zip(gk, gp)]
@@ -3266,6 +3406,8 @@ def train_f32_cut(dev) -> None:
           f"{max(g_errs)}")
     check(launches == {"cuda": 4, "blocked": 0, "none": 2, "dots": 4},
           f"float32 cut flash launches {launches}")
+    check(bwd == {"cuda": 2, "blocked": 0, "none": 2, "dots": 2},
+          f"float32 cut flash backward calls {bwd}")
     print(f"[train] {TRAIN_ARCH} widths x 2 layers, float32, batch 2 x "
           f"{TRAIN_S}: loss kernel path {float(lk):.6f} vs plain path "
           f"{float(lp):.6f} (rel {l_err:.2e}, bar {F32_LOSS_RTOL}); worst "
@@ -3273,7 +3415,9 @@ def train_f32_cut(dev) -> None:
           f"(bar {F32_GRAD_REL}); flash launches a loss + backward: "
           f"remat full {launches['cuda']}, dots {launches['dots']}, none "
           f"{launches['none']} (forward + recompute a layer, or forward "
-          f"only) ({time.perf_counter() - t0:.1f} s)")
+          f"only); backward kernel calls (SIMT route) full {bwd['cuda']}, "
+          f"dots {bwd['dots']}, none {bwd['none']}, no plain recompute "
+          f"({time.perf_counter() - t0:.1f} s)")
     del params, res
     torch.cuda.empty_cache()
 
@@ -3351,11 +3495,14 @@ def _train_full_width(dev, smi, mesh) -> dict:
 
     step = make_train_step(cfg, tcfg, kern, rules)
     losses, walls, per_step, bwd_calls, prof = [], [], [], [], None
+    bwd_kernel, plain_calls = [], []
     for i in range(TRAIN_STEPS):
         batch = next(it)
-        FK.LAUNCHES = 0
+        FK.LAUNCHES = FK.BWD_LAUNCHES = 0
         FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
-        with annotated_train_step() as calls:
+        FK.BWD_ROUTE_LAUNCHES.update(mma=0, simt=0)
+        with annotated_train_step() as calls, \
+                counting_plain_calls() as plain:
             if i == TRAIN_STEPS - 1:
                 # the last step under the profiler (not among the walls)
                 got = {}
@@ -3372,8 +3519,12 @@ def _train_full_width(dev, smi, mesh) -> dict:
         losses.append(float(m["loss"]))
         per_step.append(FK.LAUNCHES)
         bwd_calls.append(calls[0])
+        bwd_kernel.append(FK.BWD_LAUNCHES)
+        plain_calls.append(plain[0])
         check(FK.ROUTE_LAUNCHES == {"wgmma": FK.LAUNCHES, "simt": 0},
               f"training flash routes {FK.ROUTE_LAUNCHES}")
+        check(FK.BWD_ROUTE_LAUNCHES == {"mma": FK.BWD_LAUNCHES, "simt": 0},
+              f"training flash backward routes {FK.BWD_ROUTE_LAUNCHES}")
         check(np.isfinite(losses[-1]) and np.isfinite(float(
             m["grad_norm"])), f"step {i + 1}: loss or grad norm not finite")
         if i == 0:
@@ -3385,6 +3536,9 @@ def _train_full_width(dev, smi, mesh) -> dict:
           f"{per_step}, expected {2 * L} (forward + recompute a layer)")
     check(bwd_calls == [L] * TRAIN_STEPS, f"flash backward calls a step "
           f"{bwd_calls}, expected {L}")
+    check(bwd_kernel == [L] * TRAIN_STEPS and plain_calls == [0] *
+          TRAIN_STEPS, f"backward kernel calls a step {bwd_kernel}, "
+          f"plain calls {plain_calls}, expected {L} and 0")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     tokens = TRAIN_B * TRAIN_S
     wall = float(np.mean(walls[1:]))  # the first builds and warms
@@ -3396,14 +3550,17 @@ def _train_full_width(dev, smi, mesh) -> dict:
           + f" s (the first builds and warms; steps 2-{len(walls)} "
           f"{wall:.3f} s, {tokens / wall:.0f} tokens/s); flash launches a "
           f"step {per_step[0]} (all tensor-core), flash backward calls a "
-          f"step {bwd_calls[0]}; peak device memory {peak:.2f} GiB; bound "
+          f"step {bwd_calls[0]}, each one call of the backward kernels "
+          f"({bwd_kernel[0]} a step, mma route) and no plain recompute "
+          f"({plain_calls[0]}); peak device memory {peak:.2f} GiB; bound "
           f"{bound_s:.3f} s a step ({TRAIN_FLOPS_PER_PARAM_TOKEN} N tokens "
           f"= {bound_s * BF16_PER_S:.3g} flop at the bf16 tensor rate), "
           f"{100 * bound_s / wall:.1f}% of it; {smi}")
     del params, opt
     torch.cuda.empty_cache()
     return {"wall": wall, "peak": peak, "launches": per_step[0],
-            "tok_s": tokens / wall, "profile": prof}
+            "bwd_calls": bwd_kernel[0], "tok_s": tokens / wall,
+            "profile": prof}
 
 
 def train_power(dev, full) -> None:
@@ -3601,7 +3758,7 @@ def xlstm_phase(dev) -> None:
 
 def train_phase(dev, smi) -> dict:
     """Phase 16: training on the card. Returns the flash row's training
-    readings for the kernels line."""
+    reading and the flash backward's row for the kernels line."""
     import torch
     t0 = time.perf_counter()
     op = flash_op_phase(dev)                  # (a)
@@ -3612,9 +3769,19 @@ def train_phase(dev, smi) -> dict:
     xlstm_phase(dev)                          # (f)
     torch.cuda.empty_cache()
     print(f"[train] phase 16 in {time.perf_counter() - t0:.1f} s")
-    return {"train_launches_per_step": full["launches"],
-            "train_backward_ms": op["bfloat16"]["bwd_ms"],
-            "train_backward_library_ms": op["bfloat16"]["lib_bwd_ms"]}
+    b = op["bfloat16"]
+    bwd_row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/ops.py:36",
+        # a step's kernel launches: three (D, dK / dV, dQ) a call
+        "launches": 3 * full["bwd_calls"],
+        "calls_per_step": full["bwd_calls"], "max_abs_err": b["max_abs_err"],
+        "ms": b["bwd_ms"], "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": b["lib_bwd_ms"]}
+    return {"train_launches_per_step": full["launches"]}, bwd_row
 
 
 # ---- phase 17: the dry-run of the production meshes ------------------------
@@ -4085,14 +4252,14 @@ def main() -> int:
     from repro_torch.kernels.selective_scan import kernel as SK
     t0 = time.perf_counter()
     lib, *other_libs = _build.build_all([K.SOURCE, FK.SOURCE,
-                                         FK.WGMMA_SOURCE, DK.SOURCE,
-                                         SK.SOURCE])
-    _, wgmma_lib, decode_lib, scan_lib = other_libs
+                                         FK.WGMMA_SOURCE, FK.BWD_SOURCE,
+                                         DK.SOURCE, SK.SOURCE])
+    _, wgmma_lib, bwd_lib, decode_lib, scan_lib = other_libs
     print(f"[setup] built {lib.relative_to(ROOT)}, "
           + ", ".join(str(x.relative_to(ROOT)) for x in other_libs)
           + f" in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
           f"parallel)")
-    hopper_paths(wgmma_lib, decode_lib)
+    hopper_paths(wgmma_lib, bwd_lib, decode_lib)
     loop_instr = closed_loop_sass(lib, dev)
 
     # count the plain version's and the noise draw's calls too: the main
@@ -4383,7 +4550,9 @@ def main() -> int:
     fleet_plane_phase(dev, serve7, serve14, smi)          # phase 15
     dry = start_dryrun()                                  # phase 17's children
     try:
-        attn_rows[0].update(train_phase(dev, smi))        # phase 16
+        flash_train, bwd_row = train_phase(dev, smi)      # phase 16
+        attn_rows[0].update(flash_train)
+        attn_rows.insert(1, bwd_row)
     except BaseException:
         stop_dryrun(dry)
         raise

@@ -24,6 +24,16 @@ computed in float32 from the same bf16 inputs, row by row
 (`row_rel_err` against `ROW_REL_BAR`). `drop_kv_tile` models a kernel
 that loses one KV tile for some rows; `chip_smoke.py` prints its reading
 beside the bar.
+
+The backward (`kernel.flash_attention_bwd_cuda`) is held at the same
+shapes to the plain route's gradients (autograd through `attention_ref`)
+computed in float32 on the same inputs. float32: every grad within
+`BWD_F32_BAR` of its largest element (the kernels sum in tiles and head
+groups, the plain version over whole matrices). bfloat16: the relative L2
+error within `BWD_FLOOR_X` times the floor, the plain route run in bf16
+and read the same way (`bwd_readings`); the kernels round P and dS to
+bf16 for their products, the plain route only P. `drop_key_tile` models a
+backward that loses one key tile's dK and dV.
 """
 from __future__ import annotations
 
@@ -114,6 +124,60 @@ def drop_kv_tile(q, k, v, rows: slice, keys: slice, *, causal: bool = True,
     s = torch.einsum("bqhd,bthd->bhqt", q.float(), kf) * q.shape[-1] ** -0.5
     p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
     return torch.einsum("bhqt,bthd->bqhd", p, vf).to(q.dtype)
+
+
+BWD_F32_BAR = 1e-4
+BWD_FLOOR_X = 2.0
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative L2 error of ``got`` against ``want``, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def plain_route_grads(q, k, v, g, *, causal=True, window=None):
+    """(dq, dk, dv): autograd through `attention_ref` on detached copies
+    of q, k, v (the port's plain route), cotangent g."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        o = attention_ref(*qkv, causal=causal, window=window)
+        return torch.autograd.grad(o, qkv, g)
+
+
+def bwd_readings(q, k, v, g, got, *, causal=True, window=None):
+    """For a backward's ``got`` = (dq, dk, dv) on (q, k, v, g): (errors,
+    floors, bars). float32: errors are max |got - want| / max |want|
+    against the plain route, floors None, bars `BWD_F32_BAR`. bfloat16:
+    errors are relative L2 against the plain route in float32 on the same
+    bf16 inputs, floors the plain route in bf16 read the same way, bars
+    `BWD_FLOOR_X` times the floors."""
+    want = plain_route_grads(*(x.float() for x in (q, k, v)), g.float(),
+                             causal=causal, window=window)
+    if q.dtype == torch.float32:
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, want)]
+        return errs, None, [BWD_F32_BAR] * 3
+    floor = plain_route_grads(q, k, v, g, causal=causal, window=window)
+    floors = [rel_l2(a, b) for a, b in zip(floor, want)]
+    return ([rel_l2(a, b) for a, b in zip(got, want)], floors,
+            [BWD_FLOOR_X * f for f in floors])
+
+
+def drop_key_tile(grads, keys: slice):
+    """A faulty backward's (dq, dk, dv): dk and dv of the keys ``keys``
+    zeroed (one KV tile's accumulators lost)."""
+    dq, dk, dv = (x.clone() for x in grads)
+    dk[:, keys] = 0
+    dv[:, keys] = 0
+    return dq, dk, dv
+
+
+def grad_output(q: torch.Tensor, seed: int = 3) -> torch.Tensor:
+    """The cotangent g for a backward at q's shape, dtype and device."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(q.shape, generator=g).to(q.device, q.dtype)
 
 
 def _randn(shape, gen, dtype, device):

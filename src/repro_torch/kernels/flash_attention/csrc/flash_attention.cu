@@ -28,6 +28,10 @@
 // band contribute exactly 0 after that wipe and are skipped. Columns past
 // T (a ragged last tile) are -inf and contribute exactly 0.
 //
+// Given an lse pointer (the training forward; serving passes none), the
+// kernel also stores each row's natural log-sum-exp m + log(l), [B, H, S]
+// float32, for the backward (flash_attention_bwd.cu).
+//
 // Bound. 2 B H S^2 hd multiply-adds' worth of flops for causal attention
 // (the QK^T and PV products, each over half the square), against the
 // card's fp32 rate outside the tensor cores in this first version: about
@@ -70,7 +74,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int S,
                      int Tk, int H, int K, int hd, int causal, int window,
                      float scale) {
   constexpr int LD = HDP + 4;  // float4-aligned, staggers the banks
@@ -215,6 +220,8 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + tr + 16 * i;
     if (qi >= S) continue;
     const float denom = fmaxf(l_i[i], 1e-30f);
+    if (lse != nullptr && tc == 0)
+      lse[((size_t)b * H + h) * S + qi] = m_i[i] + logf(l_i[i]);
     T* orow = o + ((size_t)b * S + qi) * q_row + (size_t)h * hd;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
@@ -228,8 +235,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Tk, int H, int K, int hd, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   float* lse, int B, int S, int Tk, int H, int K, int hd,
+                   int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HDP>();
   auto kern = flash_fwd_kernel<T, HDP>;
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -238,23 +245,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B), block(kThreads);
   kern<<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H, K, hd, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, H, K, hd,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int Tk, int H, int K, int hd,
+                      float* lse, int B, int S, int Tk, int H, int K, int hd,
                       int causal, int window, float scale,
                       cudaStream_t st) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, B, S, Tk, H, K, hd, causal, window,
+    return launch<T, 32>(q, k, v, o, lse, B, S, Tk, H, K, hd, causal, window,
                          scale, st);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, B, S, Tk, H, K, hd, causal, window,
+    return launch<T, 64>(q, k, v, o, lse, B, S, Tk, H, K, hd, causal, window,
                          scale, st);
-  return launch<T, 128>(q, k, v, o, B, S, Tk, H, K, hd, causal, window,
+  return launch<T, 128>(q, k, v, o, lse, B, S, Tk, H, K, hd, causal, window,
                         scale, st);
 }
 
@@ -262,10 +269,12 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
 
 // q, o [B, S, H, hd]; k, v [B, T, K, hd]; all contiguous, float32
 // (bf16 == 0) or bfloat16 (bf16 == 1), on CUDA device `device`; H % K == 0,
-// 1 <= hd <= 128. window <= 0 means no window. Launches on `stream` and
+// 1 <= hd <= 128. lse, if not null, is [B, H, S] float32 and receives each
+// row's log-sum-exp. window <= 0 means no window. Launches on `stream` and
 // returns the CUDA error of the launch (0 when it was accepted).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int bf16,
+                                      const void* v, void* o, void* lse,
+                                      int bf16,
                                       int B, int S, int T, int H, int K,
                                       int hd, int causal, int window,
                                       float scale, int device,
@@ -274,9 +283,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_hd<__nv_bfloat16>(q, k, v, o, B, S, T, H, K, hd, causal,
-                                      window, scale, st)
-           : launch_hd<float>(q, k, v, o, B, S, T, H, K, hd, causal, window,
-                              scale, st);
+      bf16 ? launch_hd<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B,
+                                      S, T, H, K, hd, causal, window, scale,
+                                      st)
+           : launch_hd<float>(q, k, v, o, static_cast<float*>(lse), B, S, T,
+                              H, K, hd, causal, window, scale, st);
   return static_cast<int>(err);
 }

@@ -52,7 +52,11 @@
 //    so that one's softmax runs while the other's products do. The softmax
 //    was the half of the time that did not overlap before (PERF.md).
 //  - Epilogue: O / max(l, 1e-30), rounded to bf16, stored straight from
-//    registers (rows past S and columns past hd are not stored).
+//    registers (rows past S and columns past hd are not stored). Given an
+//    lse pointer (the training forward; serving passes none), it also
+//    stores each row's natural log-sum-exp, scale m + log(l), [B, H, S]
+//    float32, for the backward (flash_attention_bwd.cu); m and l are the
+//    final ones, after any tile of mask values was wiped.
 // The tensor map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint, so the library links no libcuda.
 #include <cuda.h>
@@ -300,7 +304,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
-                           __nv_bfloat16* __restrict__ o, int S, int Tk,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int S, int Tk,
                            int H, int K, int hd, int causal, int window,
                            float scale) {
   constexpr int NS = HDP / kSlab;                // 64-column slabs
@@ -493,6 +498,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int qi = r0 + 8 * ii;
       if (qi >= S) continue;
       const float inv = 1.f / fmaxf(l_i[ii], 1e-30f);
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((size_t)b * H + h) * S + qi] = scale * m_i[ii] + logf(l_i[ii]);
       __nv_bfloat16* orow = o + ((size_t)b * S + qi) * H * hd + (size_t)h * hd;
 #pragma unroll
       for (int ns = 0; ns < NS; ++ns)
@@ -550,7 +557,8 @@ bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int hd,
 
 template <int HDP>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
-                   const CUtensorMap& mv, void* o, int B, int S, int Tk,
+                   const CUtensorMap& mv, void* o, float* lse, int B,
+                   int S, int Tk,
                    int H, int K, int hd, int causal, int window, float scale,
                    cudaStream_t stream) {
   // Q tile + kStages x (K tile + V tile), and 1 KB to align the base
@@ -562,8 +570,8 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
   if (attr != cudaSuccess) return attr;
   const dim3 grid(H, B, (S + kBM - 1) / kBM), block(kThreads);
   kern<<<grid, block, smem, stream>>>(mq, mk, mv,
-                                      static_cast<__nv_bfloat16*>(o), S, Tk,
-                                      H, K, hd, causal, window, scale);
+                                      static_cast<__nv_bfloat16*>(o), lse, S,
+                                      Tk, H, K, hd, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -571,11 +579,14 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
 
 // q, o [B, S, H, hd]; k, v [B, T, K, hd]; all contiguous bfloat16 on CUDA
 // device `device`, 16-byte aligned; H % K == 0, hd % 8 == 0, 8 <= hd <=
-// 128. window <= 0 means no window. Launches on `stream` and returns the
-// CUDA error of the launch (0 when it was accepted; cudaErrorInvalidValue
-// for a shape it does not take or a tensor map the driver refused).
+// 128. lse, if not null, is [B, H, S] float32 and receives each row's
+// log-sum-exp. window <= 0 means no window. Launches on `stream` and
+// returns the CUDA error of the launch (0 when it was accepted;
+// cudaErrorInvalidValue for a shape it does not take or a tensor map the
+// driver refused).
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
-                                            const void* v, void* o, int B,
+                                            const void* v, void* o,
+                                            void* lse, int B,
                                             int S, int T, int H, int K,
                                             int hd, int causal, int window,
                                             float scale, int device,
@@ -592,9 +603,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      hd <= 64 ? launch<64>(mq, mk, mv, o, B, S, T, H, K, hd, causal, window,
-                            scale, st)
-               : launch<128>(mq, mk, mv, o, B, S, T, H, K, hd, causal,
-                             window, scale, st);
+      hd <= 64 ? launch<64>(mq, mk, mv, o, static_cast<float*>(lse), B, S, T,
+                            H, K, hd, causal, window, scale, st)
+               : launch<128>(mq, mk, mv, o, static_cast<float*>(lse), B, S,
+                             T, H, K, hd, causal, window, scale, st);
   return static_cast<int>(err);
 }

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the closed-loop kernel, flash attention (both routes) and split-KV decode
-attention (the attention bar is `repro_torch.kernels.attention_cases`), the
+the closed-loop kernel, flash attention (both routes, forward and
+backward) and split-KV decode attention (the attention bars are
+`repro_torch.kernels.attention_cases`), the
 selective scan (its bar is `repro_torch.kernels.selective_scan.cases`),
 and the serving paths through them; then the paper's identification and
 evaluation path on the card (the scan engine, the Poisson sampler, the
@@ -355,6 +356,22 @@ def test_built_kernels_take_the_hopper_paths(dev):
     ops = sass.opcodes(sass.kernel_instructions(
         decode, "decode_attention_mma_kernelILi128E"))
     assert any(op.startswith("HMMA.16816.F32.BF16") for op in ops)
+
+
+def test_built_backward_takes_the_tensor_cores(dev):
+    """The SASS of the flash backward's library: both bf16 kernels (dK /
+    dV and dQ, both head-dim instances) multiply on the tensor cores
+    (HMMA) and stage their tiles with 16-byte asynchronous copies
+    (LDGSTS ... .128)."""
+    from repro_torch.kernels import _build, sass
+    (lib,) = _build.build_all([FK.BWD_SOURCE])
+    for part in ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+        for hdp in (64, 128):
+            ops = sass.opcodes(sass.kernel_instructions(
+                lib, f"{part}ILi{hdp}E"))
+            assert any(op.startswith("HMMA.16816.F32.BF16") for op in ops)
+            assert any(op.startswith("LDGSTS") and op.endswith(".128")
+                       for op in ops)
 
 
 def test_serving_path_runs_through_the_kernels(dev):
@@ -1234,30 +1251,205 @@ def test_plane_tick_on_the_card_equals_the_cpu(dev):
 
 @pytest.mark.parametrize("case", [c for c in AC.FLASH_CASES
                                   if c[0] * c[1] <= 600])
-def test_flash_op_backward_on_the_card(dev, case):
-    """The differentiable flash op on the card: one kernel launch forward,
-    the output at the kernel's bar, and dq/dk/dv of its recompute
-    backward against the plain route's autograd on the same (q, k, v, g)
-    (both recompute through `attention_ref`; equal up to the order of
-    the GQA reduction into dk and dv, so 1e-5 of the largest grad)."""
+def test_flash_op_backward_on_the_card(dev, case, monkeypatch):
+    """The differentiable flash op on the card: one forward kernel launch,
+    the output at the kernel's bar, and one call of the backward kernels
+    (`BWD_LAUNCHES`, no forward recompute and no call of the plain
+    `attention_ref`), dq/dk/dv against the plain route's autograd on the
+    same (q, k, v, g): float32 within 1e-5 of the largest grad (the
+    kernels sum in another order), bf16 at `attention_cases.
+    bwd_readings`' bar (twice the plain route's own bf16 floor: the
+    kernels round dS to bf16 for their products)."""
     causal, window, dtype = case[5:]
     qkv = [x.requires_grad_() for x in AC.flash_inputs(case, dev)]
-    g = torch.randn(qkv[0].shape, generator=torch.Generator().manual_seed(
-        3)).to(dev, qkv[0].dtype)
-    before = FK.LAUNCHES
+    g = AC.grad_output(qkv[0])
+    before, bwd_before = FK.LAUNCHES, FK.BWD_LAUNCHES
     o = FO.flash_attention(*qkv, causal=causal, window=window)
     assert FK.LAUNCHES == before + 1
-    plain = [x.detach().requires_grad_() for x in qkv]
-    o_ref = FR.attention_ref(*plain, causal=causal, window=window)
-    torch.testing.assert_close(o.detach().float(), o_ref.detach().float(),
+    o_ref = FR.attention_ref(*(x.detach() for x in qkv), causal=causal,
+                             window=window)
+    torch.testing.assert_close(o.detach().float(), o_ref.float(),
                                **AC.tolerance(dtype))
+    plain_calls = []
+    monkeypatch.setattr(FO, "attention_ref",
+                        lambda *a, **kw: plain_calls.append(1))
     got = torch.autograd.grad(o, qkv, g)
-    want = torch.autograd.grad(o_ref, plain, g)
-    assert FK.LAUNCHES == before + 1  # the backward launches no kernel
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype
-        tol = 1e-5 * float(b.float().abs().max())
-        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
+    monkeypatch.undo()
+    assert FK.LAUNCHES == before + 1 and not plain_calls
+    assert FK.BWD_LAUNCHES == bwd_before + 1
+    torch.cuda.synchronize()
+    for a, x in zip(got, qkv):
+        assert a.dtype == x.dtype and a.shape == x.shape
+    if dtype == "float32":
+        want = AC.plain_route_grads(*qkv, g, causal=causal, window=window)
+        for a, b in zip(got, want):
+            tol = 1e-5 * float(b.abs().max())
+            torch.testing.assert_close(a, b, atol=tol, rtol=0)
+    else:
+        errs, _, bars = AC.bwd_readings(*(x.detach() for x in qkv), g, got,
+                                        causal=causal, window=window)
+        assert all(e <= b for e, b in zip(errs, bars)), (errs, bars)
+
+
+_BWD_CASES = AC.FLASH_CASES + [AC.FLASH_TRAIN, AC.FLASH_TRAIN_F32]
+
+
+@pytest.mark.parametrize("case", _BWD_CASES, ids=str)
+def test_flash_kernel_writes_the_row_lse(dev, case):
+    """Asked for it, the forward kernel writes each row's log-sum-exp
+    (`ref.attention_lse_ref`, within float32 rounding: 1e-5), and its
+    output is the output it gives unasked, bit for bit."""
+    B, S, H, _, _, causal, window, _ = case
+    q, k, v = AC.flash_inputs(case, dev)
+    lse = torch.full((B, H, S), float("nan"), device=dev)
+    o = FK.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                lse=lse)
+    o0 = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o0)
+    _, want = FR.attention_lse_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", _BWD_CASES, ids=str)
+def test_flash_backward_kernel_matches_plain_versions(dev, case):
+    """The backward kernels on the forward kernel's o and lse, counted
+    once in `BWD_LAUNCHES` and in their route's count (`bwd_route`:
+    "mma" for bf16, "simt" for float32): against the plain route's
+    autograd at `attention_cases.bwd_readings`' bars, and against
+    `ref.attention_bwd_ref` on the same o and lse (float32: 1e-4 of the
+    largest grad; bf16: within the same bar). A backward that loses one
+    key tile's dK and dV reads above the bar."""
+    B, S, H, K, hd, causal, window, dtype = case
+    q, k, v = AC.flash_inputs(case, dev)
+    g = AC.grad_output(q)
+    lse = torch.empty((B, H, S), device=dev)
+    o = FK.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                lse=lse)
+    path = FK.bwd_route(q.dtype, hd)
+    assert path == ("mma" if dtype == "bfloat16" else "simt")
+    before, routes = FK.BWD_LAUNCHES, dict(FK.BWD_ROUTE_LAUNCHES)
+    got = FK.flash_attention_bwd_cuda(q, k, v, o, lse, g, causal=causal,
+                                      window=window)
+    assert FK.BWD_LAUNCHES == before + 1
+    assert FK.BWD_ROUTE_LAUNCHES[path] == routes[path] + 1
+    torch.cuda.synchronize()
+    errs, _, bars = AC.bwd_readings(q, k, v, g, got, causal=causal,
+                                    window=window)
+    assert all(e <= b for e, b in zip(errs, bars)), (errs, bars)
+    want = FR.attention_bwd_ref(q, k, v, o, lse, g, causal=causal,
+                                window=window)
+    for a, b, bar in zip(got, want, bars):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if dtype == "float32":
+            assert float((a - b).abs().max() / b.abs().max()) <= bar
+        else:
+            assert AC.rel_l2(a, b) <= bar
+    mid = S // 2 // FK.BWD_TILE * FK.BWD_TILE
+    broken, _, _ = AC.bwd_readings(
+        q, k, v, g, AC.drop_key_tile(got, slice(mid, mid + FK.BWD_TILE)),
+        causal=causal, window=window)
+    assert broken[1] > bars[1] and broken[2] > bars[2]
+
+
+def test_flash_backward_is_deterministic(dev):
+    """Two backward calls at the training shape give the same bits: the
+    head groups' partials are summed in group order, whichever block
+    finishes last."""
+    q, k, v = AC.flash_inputs(AC.FLASH_TRAIN, dev)
+    g = AC.grad_output(q)
+    B, S, H = q.shape[:3]
+    lse = torch.empty((B, H, S), device=dev)
+    o = FK.flash_attention_cuda(q, k, v, lse=lse)
+    a = FK.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+    b = FK.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_backward_events_time_each_launch(dev):
+    """Given four CUDA events, the backward records them around its three
+    launches: each gap is a positive device time, and the grads are the
+    bits of a call without events. The head split's tickets, kept from
+    call to call, are all 0 again after a call."""
+    q, k, v = AC.flash_inputs(AC.FLASH_TRAIN, dev)
+    g = AC.grad_output(q)
+    B, S, H = q.shape[:3]
+    lse = torch.empty((B, H, S), device=dev)
+    o = FK.flash_attention_cuda(q, k, v, lse=lse)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    a = FK.flash_attention_bwd_cuda(q, k, v, o, lse, g, events=ev)
+    b = FK.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    gaps = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    assert all(t > 0 for t in gaps), gaps
+    assert FK._TICKETS and all(not t.any() for t in FK._TICKETS.values())
+    with pytest.raises(ValueError, match="four"):
+        FK.flash_attention_bwd_cuda(q, k, v, o, lse, g, events=ev[:3])
+
+
+def test_flash_backward_rejects_what_the_kernels_do_not_take(dev):
+    case = (1, 128, 4, 2, 64, True, None, "bfloat16")
+    q, k, v = AC.flash_inputs(case, dev)
+    g = AC.grad_output(q)
+    lse = torch.empty((1, 4, 128), device=dev)
+    o = FK.flash_attention_cuda(q, k, v, lse=lse)
+    bwd = FK.flash_attention_bwd_cuda
+    with pytest.raises(TypeError):
+        bwd(q, k, v, o, lse.double(), g)
+    with pytest.raises(TypeError):
+        bwd(q, k, v, o, lse, g.float())
+    with pytest.raises(ValueError, match="shape"):
+        bwd(q, k, v, o, lse[:, :2], g)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q, k, v, o, lse, g.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        bwd(q, k, v, o.cpu(), lse, g)
+    with pytest.raises(ValueError, match="hd"):
+        z = torch.zeros(1, 8, 2, 160, device=dev)
+        bwd(z, z, z, z, torch.zeros(1, 2, 8, device=dev), z)
+    off = torch.zeros(g.numel() + 1, dtype=g.dtype, device=dev)
+    gs = off[1:].view(g.shape)
+    gs.copy_(g)
+    with pytest.raises(ValueError, match="aligned"):
+        bwd(q, k, v, o, lse, gs)
+    with pytest.raises(TypeError):
+        FK.flash_attention_cuda(q, k, v, lse=lse.bfloat16())
+
+
+def test_train_backward_runs_the_kernels_under_every_remat(dev,
+                                                           monkeypatch):
+    """`value_and_grads` on the card (reduced qwen3-8b widths x 2 layers,
+    bf16) under remat "none", "full" and "dots": every layer's flash
+    backward runs the backward kernels once (`BWD_LAUNCHES` 2, all on the
+    tensor-core route) and the plain `attention_ref` is never called."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.steps import value_and_grads
+    from repro_torch.models import ApplyOptions, init_params
+    rng = np.random.default_rng(0)
+    base = dataclasses.replace(reduced(get_config("qwen3-8b")),
+                               num_layers=2, param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+    batch = {k: torch.from_numpy(rng.integers(0, base.vocab_size, (2, 64))
+                                 ).to(dev) for k in ("tokens", "labels")}
+    plain_calls = []
+    real = FO.attention_ref
+    monkeypatch.setattr(FO, "attention_ref", lambda *a, **kw: (
+        plain_calls.append(1), real(*a, **kw))[1])
+    for remat in ("none", "full", "dots"):
+        cfg = dataclasses.replace(base, remat=remat)
+        params = init_params(cfg, 0, dev)
+        FK.BWD_LAUNCHES = 0
+        FK.BWD_ROUTE_LAUNCHES.update(mma=0, simt=0)
+        loss, _, grads = value_and_grads(
+            cfg, ApplyOptions(attn_impl="cuda", block_q=32), params, batch)
+        assert np.isfinite(float(loss))
+        assert all(bool(torch.isfinite(x).all()) for x in grads)
+        assert FK.BWD_LAUNCHES == 2, remat
+        assert FK.BWD_ROUTE_LAUNCHES == {"mma": 2, "simt": 0}, remat
+    assert not plain_calls
 
 
 def test_train_step_kernel_route_matches_plain_route(dev):
