@@ -195,8 +195,8 @@ Phases, each of which fails the run if a check fails:
 
 17. the dry-run of the production meshes (`[dryrun]` lines): the
    port's `repro_torch.launch.dryrun` in three children at once,
-   started before phase 16 and run beside it (host CPU only, at low
-   priority), each a fake process group of 256 or 512 ranks with the
+   started before phase 15 and run beside phases 15 and 16 (host CPU
+   only, at low priority), each a fake process group of 256 or 512 ranks with the
    mesh on the card's device type and the steps on meta tensors:
    starcoder2-3b x decode_32k on 16x16 and 2x16x16, qwen3-8b x train_4k on 16x16 (full
    and cost), llama3-405b x train_4k on 2x16x16; each cell's wall,
@@ -223,7 +223,9 @@ Phases, each of which fails the run if a check fails:
 
 The set-up also reads the built SASS: the fused closed-loop summary loop
 must touch no memory but its shared histograms (no LDG), the bf16 flash
-kernel must hold warpgroup products (HGMMA) and TMA loads (UTMALDG), the
+kernel and the bf16 flash backward's dK / dV and dQ kernels must hold
+warpgroup products (HGMMA) and TMA loads (UTMALDG), the backward's no
+mma.sync (HMMA), the
 decode kernels must copy the cache with 16-byte loads only (LDGSTS ...
 .128), and the bf16 one must multiply on the tensor cores (HMMA); and it
 checks that the fused closed-loop instance keeps the main grid resident
@@ -360,10 +362,9 @@ def rel_err(a, b) -> float:
 def hopper_paths(wgmma_lib, bwd_lib, decode_lib) -> None:
     """The built SASS of the attention kernels: the bf16 flash kernel (both
     head-dim instances) issues warpgroup products (HGMMA) and TMA loads
-    (UTMALDG); the bf16 flash backward's dK / dV and dQ kernels (both
-    head-dim instances) multiply on the tensor cores (HMMA) and stage
-    their tiles with 16-byte asynchronous copies (LDGSTS ... .128); the
-    decode kernels (bf16 and float32 at hd 128) copy the cache with
+    (UTMALDG); so do the bf16 flash backward's dK / dV and dQ kernels
+    (both head-dim instances), which hold no warp-level mma.sync (HMMA);
+    the decode kernels (bf16 and float32 at hd 128) copy the cache with
     16-byte loads only (LDGSTS ... .128), and the bf16 one multiplies on
     the tensor cores (HMMA)."""
     from repro_torch.kernels import sass
@@ -377,19 +378,19 @@ def hopper_paths(wgmma_lib, bwd_lib, decode_lib) -> None:
         print(f"[setup] flash_fwd_wgmma_kernel<{hdp}> SASS: {hgmma} HGMMA ("
               + ", ".join(sorted(op for op in ops if op.startswith("HGMMA.")))
               + f"), {tma} UTMALDG")
-    for part in ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+    for part in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"):
         for hdp in (64, 128):
             ops = sass.opcodes(sass.kernel_instructions(
                 bwd_lib, f"{part}ILi{hdp}E"))
-            hmma = sum(n for op, n in ops.items() if op.startswith("HMMA."))
-            copies = {op: n for op, n in ops.items()
-                      if op.startswith("LDGSTS")}
-            check(hmma > 0 and any(op.endswith(".128") for op in copies),
-                  f"{part}<{hdp}>: {hmma} HMMA, copies {copies}")
-            print(f"[setup] {part}<{hdp}> SASS: {hmma} HMMA ("
+            n = {kind: sum(c for op, c in ops.items()
+                           if op.startswith(kind + "."))
+                 for kind in ("HGMMA", "UTMALDG", "HMMA")}
+            check(n["HGMMA"] > 0 and n["UTMALDG"] > 0 and n["HMMA"] == 0,
+                  f"{part}<{hdp}>: {n}")
+            print(f"[setup] {part}<{hdp}> SASS: {n['HGMMA']} HGMMA ("
                   + ", ".join(sorted(op for op in ops
-                                     if op.startswith("HMMA.")))
-                  + f"), tile copies {copies}")
+                                     if op.startswith("HGMMA.")))
+                  + f"), {n['UTMALDG']} UTMALDG, {n['HMMA']} HMMA")
     for part in ("decode_attention_mma_kernelILi128E",
                  "decode_attention_kernelIfLi128ELi4E"):
         ops = sass.opcodes(sass.kernel_instructions(decode_lib, part))
@@ -3382,7 +3383,7 @@ def train_f32_cut(dev) -> None:
     for impl in ("cuda", "blocked"):
         FK.LAUNCHES = FK.BWD_LAUNCHES = 0
         FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
-        FK.BWD_ROUTE_LAUNCHES.update(mma=0, simt=0)
+        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, simt=0)
         res[impl] = value_and_grads(cfg, ApplyOptions(attn_impl=impl),
                                     params, batch)
         launches[impl], bwd[impl] = FK.LAUNCHES, FK.BWD_LAUNCHES
@@ -3500,7 +3501,7 @@ def _train_full_width(dev, smi, mesh) -> dict:
         batch = next(it)
         FK.LAUNCHES = FK.BWD_LAUNCHES = 0
         FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
-        FK.BWD_ROUTE_LAUNCHES.update(mma=0, simt=0)
+        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, simt=0)
         with annotated_train_step() as calls, \
                 counting_plain_calls() as plain:
             if i == TRAIN_STEPS - 1:
@@ -3523,7 +3524,8 @@ def _train_full_width(dev, smi, mesh) -> dict:
         plain_calls.append(plain[0])
         check(FK.ROUTE_LAUNCHES == {"wgmma": FK.LAUNCHES, "simt": 0},
               f"training flash routes {FK.ROUTE_LAUNCHES}")
-        check(FK.BWD_ROUTE_LAUNCHES == {"mma": FK.BWD_LAUNCHES, "simt": 0},
+        check(FK.BWD_ROUTE_LAUNCHES == {"wgmma": FK.BWD_LAUNCHES,
+                                        "simt": 0},
               f"training flash backward routes {FK.BWD_ROUTE_LAUNCHES}")
         check(np.isfinite(losses[-1]) and np.isfinite(float(
             m["grad_norm"])), f"step {i + 1}: loss or grad norm not finite")
@@ -3551,7 +3553,7 @@ def _train_full_width(dev, smi, mesh) -> dict:
           f"{wall:.3f} s, {tokens / wall:.0f} tokens/s); flash launches a "
           f"step {per_step[0]} (all tensor-core), flash backward calls a "
           f"step {bwd_calls[0]}, each one call of the backward kernels "
-          f"({bwd_kernel[0]} a step, mma route) and no plain recompute "
+          f"({bwd_kernel[0]} a step, wgmma route) and no plain recompute "
           f"({plain_calls[0]}); peak device memory {peak:.2f} GiB; bound "
           f"{bound_s:.3f} s a step ({TRAIN_FLOPS_PER_PARAM_TOKEN} N tokens "
           f"= {bound_s * BF16_PER_S:.3g} flop at the bf16 tensor rate), "
@@ -3773,7 +3775,7 @@ def train_phase(dev, smi) -> dict:
     bwd_row = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_bwd.cu",
+                  "flash_attention_bwd_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/ops.py:36",
         # a step's kernel launches: three (D, dK / dV, dQ) a call
         "launches": 3 * full["bwd_calls"],
@@ -3821,8 +3823,10 @@ def _dryrun_cell_line(res: dict) -> str:
 
 def start_dryrun() -> dict:
     """Starts phase 17's children (`DRYRUN_CMDS`, at low priority). They
-    use the host's CPU only (meta tensors), so they run beside phase 16's
-    device-bound training; `dryrun_phase` collects them, and
+    use the host's CPU only (meta tensors), so they run beside phases 15
+    and 16 and are done, on a host of usual speed, before phase 16 (b)
+    times the training step, which keeps the card busy only while the
+    host enqueues fast enough; `dryrun_phase` collects them, and
     `stop_dryrun` ends any still running."""
     import os
     import shutil
@@ -3837,7 +3841,8 @@ def start_dryrun() -> dict:
         procs.append((arch, subprocess.Popen(
             argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
-    return {"procs": procs, "out": out, "started": time.perf_counter()}
+    return {"procs": procs, "out": out, "started": time.perf_counter(),
+            "started_at": time.time()}
 
 
 def stop_dryrun(run: dict) -> None:
@@ -3862,11 +3867,14 @@ def dryrun_phase(smi, run: dict) -> None:
     waited = time.perf_counter()
     walls = {}
     try:
-        for arch, proc in run["procs"]:
+        for i, (arch, proc) in enumerate(run["procs"]):
             text, _ = proc.communicate(timeout=900)
-            walls[arch] = time.perf_counter() - started
             check(proc.returncode == 0, f"dry-run {arch} exited "
                   f"{proc.returncode}: {text[-3000:]}")
+            # a child that ended before it was collected: its last write
+            walls[arch] = max((f.stat().st_mtime for f in
+                               (out / str(i)).glob("*.json")),
+                              default=time.time()) - run["started_at"]
     finally:
         stop_dryrun(run)
     waited = time.perf_counter() - waited
@@ -3912,8 +3920,8 @@ def dryrun_phase(smi, run: dict) -> None:
           f"{per_rank * full['devices'] / six_nd:.3f} x 6 N D "
           f"({six_nd:.4e}; 6 N D / {full['devices']} = "
           f"{six_nd / full['devices']:.4e} a rank)")
-    print(f"[dryrun] children's walls (all three at once, beside phase "
-          f"16): " + ", ".join(f"{a} {w:.1f} s" for a, w in walls.items())
+    print(f"[dryrun] children's walls (all three at once, beside phases "
+          f"15-16): " + ", ".join(f"{a} {w:.1f} s" for a, w in walls.items())
           + f"; phase 17 in {time.perf_counter() - started:.1f} s, of "
           f"which {waited:.1f} s after phase 16; on {smi}")
 
@@ -4253,8 +4261,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib, *other_libs = _build.build_all([K.SOURCE, FK.SOURCE,
                                          FK.WGMMA_SOURCE, FK.BWD_SOURCE,
-                                         DK.SOURCE, SK.SOURCE])
-    _, wgmma_lib, bwd_lib, decode_lib, scan_lib = other_libs
+                                         FK.BWD_WGMMA_SOURCE, DK.SOURCE,
+                                         SK.SOURCE])
+    _, wgmma_lib, _, bwd_lib, decode_lib, scan_lib = other_libs
     print(f"[setup] built {lib.relative_to(ROOT)}, "
           + ", ".join(str(x.relative_to(ROOT)) for x in other_libs)
           + f" in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
@@ -4547,9 +4556,9 @@ def main() -> int:
     scenarios_phase(dev, main_grid, main_kw, smi)         # phase 13
     serve14 = runtime_phase(dev, main_grid, main_kw, main_out,
                             main_summary, serve7, smi)    # phase 14
-    fleet_plane_phase(dev, serve7, serve14, smi)          # phase 15
     dry = start_dryrun()                                  # phase 17's children
     try:
+        fleet_plane_phase(dev, serve7, serve14, smi)      # phase 15
         flash_train, bwd_row = train_phase(dev, smi)      # phase 16
         attn_rows[0].update(flash_train)
         attn_rows.insert(1, bwd_row)

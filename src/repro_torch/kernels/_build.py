@@ -33,12 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # explicit fmaf (the flash dot products; the scan's state update and its
 # sum over the states), which the flag leaves alone. The sources named in
 # `CONTRACTING` are built without it: the tensor-core flash kernel, the
-# flash backward (both routes: it sums in its own order, tiles and head
+# flash backward (both sources: it sums in its own order, tiles and head
 # groups, and is held to its plain version at a tolerance, float32 at 1e-4
 # of the largest grad) and the decode kernel sum in their own order and are
 # held to their plain versions at a tolerance.
 EXACT_FLAGS = ("-fmad=false",)
 CONTRACTING = frozenset({"flash_attention_wgmma.cu", "flash_attention_bwd.cu",
+                         "flash_attention_bwd_wgmma.cu",
                          "decode_attention.cu"})
 
 

@@ -54,6 +54,8 @@ FLASH_CASES = [
     (1, 256, 4, 2, 64, True, 8, "float32"),      # window < a KV tile
     (1, 200, 4, 2, 128, False, 50, "bfloat16"),  # two-sided window
     (2, 512, 32, 8, 120, True, 4096, "bfloat16"),  # danube widths
+    (1, 256, 4, 2, 64, True, 8, "bfloat16"),     # window < a tile, bf16
+    (1, 300, 4, 2, 120, True, 100, "bfloat16"),  # ragged, hd 120, bf16
 ]
 # qwen3-8b prefill, batch 8 x 1,024 tokens, per layer
 FLASH_SERVE = (8, 1024, 32, 8, 128, True, None, "bfloat16")

@@ -1,8 +1,7 @@
 """Flash attention: `ref.py` (plain PyTorch versions, the CPU path:
 forward, forward with the rows' log-sum-exp, backward), `kernel.py`
-(wrappers of the CUDA kernels in `csrc/`: the forward's wgmma + TMA for
-bf16 and SIMT for float32, the backward's mma.sync for bf16 and SIMT for
-float32), `ops.py` (the public differentiable `flash_attention` op in the
+(wrappers of the CUDA kernels in `csrc/`: wgmma + TMA for bf16 and SIMT
+for float32, forward and backward), `ops.py` (the public differentiable `flash_attention` op in the
 model's layout)."""
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,

@@ -3,10 +3,11 @@ counterparts of the TPU kernel `_fwd_kernel` / `flash_attention_fwd` in
 `repro.kernels.flash_attention.kernel`, ``csrc/flash_attention_wgmma.cu``
 (tensor cores: wgmma fed by TMA, bf16) and ``csrc/flash_attention.cu``
 (SIMT float32 FMAs, float32 and any other shape), which also write the
-rows' log-sum-exp when given an ``lse`` tensor. The backward:
-``csrc/flash_attention_bwd.cu`` (D, dK / dV and dQ, three launches a
-call; mma.sync on the tensor cores for bf16, SIMT float32 FMAs
-otherwise), the port of the reference's recompute VJP `_flash_bwd`.
+rows' log-sum-exp when given an ``lse`` tensor. The backward (D, dK /
+dV and dQ, three launches a call), the port of the reference's recompute
+VJP `_flash_bwd`: ``csrc/flash_attention_bwd_wgmma.cu`` (tensor cores:
+wgmma fed by TMA, bf16) and ``csrc/flash_attention_bwd.cu`` (SIMT float32
+FMAs otherwise).
 
 `route` and `bwd_route` pick the kernels from the dtype and head_dim
 alone: a static rule, not a fallback. `flash_attention_cuda` and
@@ -29,6 +30,7 @@ from repro_torch.kernels import _build, check_tensor
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 WGMMA_SOURCE = SOURCE.with_name("flash_attention_wgmma.cu")
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
+BWD_WGMMA_SOURCE = SOURCE.with_name("flash_attention_bwd_wgmma.cu")
 
 # the kernels' head_dim limit (their widest tile)
 MAX_HEAD_DIM = 128
@@ -39,10 +41,12 @@ LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
 # Calls of the backward (three kernel launches each), and of each route.
 BWD_LAUNCHES = 0
-BWD_ROUTE_LAUNCHES = {"mma": 0, "simt": 0}
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
 
-# the backward's tensor-core tiles: 64 keys (dK / dV) or 64 queries (dQ)
-BWD_TILE = 64
+# the keys a block of the tensor-core backward's dK / dV kernel owns
+BWD_TILE = 128
+# its rows of -lse log2(e) and D are padded to a multiple of this
+BWD_ROW_PAD = 64
 
 # the head split's zeroed tickets, one buffer a (device, stream), grown as
 # calls need: the dK / dV kernel leaves every ticket at 0 again
@@ -63,24 +67,26 @@ def route(dtype: torch.dtype, hd: int) -> str:
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The backward's kernels: "mma" (mma.sync on the tensor cores) where
-    the forward takes "wgmma", else "simt" (float32 FMAs)."""
-    return "mma" if route(dtype, hd) == "wgmma" else "simt"
+    """The backward's kernels: "wgmma" (wgmma fed by TMA on the tensor
+    cores) where the forward takes it, else "simt" (float32 FMAs)."""
+    return route(dtype, hd)
 
 
 def g_split(B: int, K: int, T: int, G: int, n_sm: int) -> int:
     """How many groups the dK / dV kernel splits each KV head's G query
     heads into: the smallest divisor of G that gives the card one wave of
-    its blocks (two resident a multiprocessor), else G. Each group's
+    its blocks (one resident a multiprocessor), else G. Each group's
     partial is summed in group order, so the split changes the summation
     order only. Of the rules "blocks >= n x the multiprocessors" (n = 1,
-    2, 4), timed over every split at six shapes of the tensor-core route
-    by `tools/flash_bwd_variants.py` on an H100, n = 2 takes the fastest
-    split at starcoder2-3b's training shape (2 of G = 12) and is no worse
-    than n = 4 elsewhere."""
+    2, 4), timed over every split at eight shapes of the tensor-core route
+    by `tools/flash_bwd_variants.py` on an H100, n = 1 takes the fastest
+    split at the three large ones (starcoder2-3b's training shape: 2 of G
+    = 12; at batch 1: 6; qwen3-8b's widths: none) and is on average the
+    nearest to the fastest; on the 4- to 6-block `FLASH_CASES` no split
+    is fastest."""
     blocks = B * K * -(-T // BWD_TILE)
     for d in range(1, G + 1):
-        if G % d == 0 and blocks * d >= 2 * n_sm:
+        if G % d == 0 and blocks * d >= n_sm:
             return d
     return G
 
@@ -91,10 +97,12 @@ def _fn(path: str):
         fn = _build.load(WGMMA_SOURCE).flash_attention_wgmma_launch
         args = [_ptr, _ptr, _ptr, _ptr, _ptr, _i, _i, _i, _i, _i, _i, _i,
                 _i, ctypes.c_float, _i, _ptr]
-    elif path == "bwd":
+    elif path == "bwd_wgmma":
+        fn = _build.load(BWD_WGMMA_SOURCE).flash_attention_bwd_wgmma_launch
+        args = [_ptr] * 12 + [_i] * 8 + [ctypes.c_float, _i, _i, _ptr, _ptr]
+    elif path == "bwd_simt":
         fn = _build.load(BWD_SOURCE).flash_attention_bwd_launch
-        args = [_ptr] * 12 + [_i] * 10 + [ctypes.c_float, _i, _i, _ptr,
-                                          _ptr]
+        args = [_ptr] * 10 + [_i] * 9 + [ctypes.c_float, _i, _ptr, _ptr]
     else:
         fn = _build.load(SOURCE).flash_attention_launch
         args = [_ptr, _ptr, _ptr, _ptr, _ptr, _i, _i, _i, _i, _i, _i, _i,
@@ -189,10 +197,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     v [B,T,K,hd] in one dtype (float32 or bfloat16), lse [B,H,S] float32
     (the forward's), all contiguous on one CUDA device -> (dq, dk, dv) in
     the inputs' dtype. Three kernel launches (`bwd_route`'s: D, dK / dV,
-    dQ); the tensor-core route needs every bf16 tensor 16-byte aligned.
-    Counted once in `BWD_LAUNCHES` and in its route's count. Given
-    ``events`` (four `torch.cuda.Event(enable_timing=True)`), they are
-    recorded before D, after D, after dK / dV and after dQ, so that
+    dQ); the tensor-core route's TMA maps need q, k, v, o and do 16-byte
+    aligned. Counted once in `BWD_LAUNCHES` and in its route's count.
+    Given ``events`` (four `torch.cuda.Event(enable_timing=True)`), they
+    are recorded before D, after D, after dK / dV and after dQ, so that
     ``events[i].elapsed_time(events[i + 1])`` is each launch's device
     time once the stream has reached them."""
     global BWD_LAUNCHES
@@ -202,7 +210,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     check_tensor("do", do, (B, S, H, hd), (q.dtype,), dev)
     check_tensor("lse", lse, (B, H, S), (torch.float32,), dev)
     path = bwd_route(q.dtype, hd)
-    if path == "mma" and any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
+    if path == "wgmma" and any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
         raise ValueError("the tensor-core flash backward needs q, k, v, o "
                          "and do 16-byte aligned")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -212,29 +220,36 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     stream = torch.cuda.current_stream(dev)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    gsplit, ws, tickets, marks = 1, None, None, None
-    if path == "mma":
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        gsplit = g_split(B, K, T, H // K, n_sm)
-    if gsplit > 1:
-        ws = torch.empty((gsplit, 2, B, T, K, hd), dtype=torch.float32,
-                         device=dev)
-        tickets = _tickets(B * K * -(-T // BWD_TILE), dev, stream)
+    marks = None
     if events is not None:
         for e in events:  # creates each event on the stream
             e.record(stream)
         marks = (_ptr * 4)(*(e.cuda_event for e in events))
-    err = _fn("bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        tickets.data_ptr() if tickets is not None else None,
-        int(q.dtype == torch.bfloat16), int(path == "mma"), B, S, T, H, K,
-        hd, int(causal), int(window) if window is not None else 0,
-        float(hd ** -0.5), gsplit, _device_index(dev), stream.cuda_stream,
-        marks)
+    mask = (int(causal), int(window) if window is not None else 0,
+            float(hd ** -0.5))
+    ptrs = [x.data_ptr() for x in (q, k, v, o, lse, do, dq, dk, dv)]
+    if path == "wgmma":
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        gsplit = g_split(B, K, T, H // K, n_sm)
+        # -lse log2(e) and D, rows padded for the dK / dV kernel's copies
+        rows = torch.empty((2, B, H, -(-S // BWD_ROW_PAD) * BWD_ROW_PAD),
+                           dtype=torch.float32, device=dev)
+        ws = tickets = None
+        if gsplit > 1:
+            ws = torch.empty((gsplit, 2, B, T, K, hd), dtype=torch.float32,
+                             device=dev)
+            tickets = _tickets(B * K * -(-T // BWD_TILE), dev, stream)
+        err = _fn("bwd_wgmma")(
+            *ptrs, rows.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            tickets.data_ptr() if tickets is not None else None,
+            B, S, T, H, K, hd, *mask, gsplit, _device_index(dev),
+            stream.cuda_stream, marks)
+    else:
+        delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        err = _fn("bwd_simt")(
+            *ptrs, delta.data_ptr(), int(q.dtype == torch.bfloat16), B, S, T,
+            H, K, hd, *mask, _device_index(dev), stream.cuda_stream, marks)
     if err != 0:
         raise RuntimeError(f"flash_attention backward {path} kernel launch "
                            f"failed: CUDA error {err}")

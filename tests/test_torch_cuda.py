@@ -359,19 +359,20 @@ def test_built_kernels_take_the_hopper_paths(dev):
 
 
 def test_built_backward_takes_the_tensor_cores(dev):
-    """The SASS of the flash backward's library: both bf16 kernels (dK /
-    dV and dQ, both head-dim instances) multiply on the tensor cores
-    (HMMA) and stage their tiles with 16-byte asynchronous copies
-    (LDGSTS ... .128)."""
+    """The SASS of the flash backward's tensor-core library: both bf16
+    kernels (dK / dV and dQ, both head-dim instances) issue warpgroup
+    products (HGMMA) on tiles that TMA loads (UTMALDG), and no
+    warp-level mma.sync (HMMA)."""
     from repro_torch.kernels import _build, sass
-    (lib,) = _build.build_all([FK.BWD_SOURCE])
-    for part in ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+    (lib,) = _build.build_all([FK.BWD_WGMMA_SOURCE])
+    for part in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"):
         for hdp in (64, 128):
             ops = sass.opcodes(sass.kernel_instructions(
                 lib, f"{part}ILi{hdp}E"))
-            assert any(op.startswith("HMMA.16816.F32.BF16") for op in ops)
-            assert any(op.startswith("LDGSTS") and op.endswith(".128")
+            assert any(op.startswith("HGMMA.64x64x16.F32.BF16")
                        for op in ops)
+            assert any(op.startswith("UTMALDG.4D") for op in ops)
+            assert not any(op.startswith("HMMA") for op in ops)
 
 
 def test_serving_path_runs_through_the_kernels(dev):
@@ -1315,7 +1316,7 @@ def test_flash_kernel_writes_the_row_lse(dev, case):
 def test_flash_backward_kernel_matches_plain_versions(dev, case):
     """The backward kernels on the forward kernel's o and lse, counted
     once in `BWD_LAUNCHES` and in their route's count (`bwd_route`:
-    "mma" for bf16, "simt" for float32): against the plain route's
+    "wgmma" for bf16, "simt" for float32): against the plain route's
     autograd at `attention_cases.bwd_readings`' bars, and against
     `ref.attention_bwd_ref` on the same o and lse (float32: 1e-4 of the
     largest grad; bf16: within the same bar). A backward that loses one
@@ -1327,7 +1328,7 @@ def test_flash_backward_kernel_matches_plain_versions(dev, case):
     o = FK.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 lse=lse)
     path = FK.bwd_route(q.dtype, hd)
-    assert path == ("mma" if dtype == "bfloat16" else "simt")
+    assert path == ("wgmma" if dtype == "bfloat16" else "simt")
     before, routes = FK.BWD_LAUNCHES, dict(FK.BWD_ROUTE_LAUNCHES)
     got = FK.flash_attention_bwd_cuda(q, k, v, o, lse, g, causal=causal,
                                       window=window)
@@ -1442,13 +1443,13 @@ def test_train_backward_runs_the_kernels_under_every_remat(dev,
         cfg = dataclasses.replace(base, remat=remat)
         params = init_params(cfg, 0, dev)
         FK.BWD_LAUNCHES = 0
-        FK.BWD_ROUTE_LAUNCHES.update(mma=0, simt=0)
+        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, simt=0)
         loss, _, grads = value_and_grads(
             cfg, ApplyOptions(attn_impl="cuda", block_q=32), params, batch)
         assert np.isfinite(float(loss))
         assert all(bool(torch.isfinite(x).all()) for x in grads)
         assert FK.BWD_LAUNCHES == 2, remat
-        assert FK.BWD_ROUTE_LAUNCHES == {"mma": 2, "simt": 0}, remat
+        assert FK.BWD_ROUTE_LAUNCHES == {"wgmma": 2, "simt": 0}, remat
     assert not plain_calls
 
 

@@ -8,7 +8,7 @@ entries whose KV heads have more than one query head.
 
     python3 tools/flash_bwd_variants.py
 
-The dK / dV kernel gives a block one (64-key tile, KV head, batch, group
+The dK / dV kernel gives a block one (128-key tile, KV head, batch, group
 of query heads); `kernel.g_split` picks how many groups each KV head's G
 heads are split into. For each shape every divisor of G is forced in
 turn (replacing `g_split` for the call) and timed as device ms per call
@@ -20,8 +20,10 @@ launch's device time from CUDA events around it (the wrapper's
 whose blocks reach n x the multiprocessors, else G" (n = 1, 2, 4) is read
 against the fastest split: its pick and its time over the best. At the
 training shape also: the head-TP layout (K / V repeated to every head,
-G = 1) and SDPA's backward. Prints the card's name and power limit.
-Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.
+G = 1) and SDPA's backward. First, ptxas's report (`-Xptxas -v`: registers,
+stack and spills) of each kernel of the tensor-core route's source, built
+with its own flags. Prints the card's name and power limit. Needs one
+NVIDIA H100 (sm_90a) and the CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -50,6 +52,30 @@ def per_launch(fn, reps=5) -> list:
     return out
 
 
+def ptxas_report(source: Path) -> None:
+    """ptxas's registers, stack and spills of each kernel in ``source``,
+    built with `_build.flags` and `-Xptxas -v` into a scratch library."""
+    import re
+    import tempfile
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        out = subprocess.run([_build.nvcc_path(), *_build.flags(source),
+                              "-Xptxas", "-v", "-o", f"{tmp}/report.so",
+                              str(source)], capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"nvcc failed on {source.name}:\n{out.stderr}")
+    kernel = None
+    for line in out.stderr.splitlines():
+        m = re.search(r"Function properties for \S*?(flash_bwd_\w+?_kernel)"
+                      r"(ILi(\d+)E)?", line)
+        if m:
+            kernel = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+        elif kernel and ("spill" in line or "registers" in line):
+            print(f"[bwd] ptxas {kernel}: "
+                  f"{line.split('ptxas info    :')[-1].strip()}")
+
+
 def rule_pick(blocks: int, G: int, n: int, n_sm: int) -> int:
     for d in range(1, G + 1):
         if G % d == 0 and blocks * d >= n * n_sm:
@@ -67,13 +93,14 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.timing import device_ms, in_turns
 
+    ptxas_report(FK.BWD_WGMMA_SOURCE)
     dev = torch.device("cuda")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     real_split = FK.g_split
     shapes = [AC.FLASH_TRAIN, (1,) + AC.FLASH_TRAIN[1:], AC.FLASH_SERVE] + [
         c for c in AC.FLASH_CASES
         if c[-1] == "bfloat16" and c[2] > c[3]
-        and FK.bwd_route(torch.bfloat16, c[4]) == "mma"]
+        and FK.bwd_route(torch.bfloat16, c[4]) == "wgmma"]
     over = {n: [] for n in RULES + ("shipped",)}
     for case in shapes:
         B, S, H, K, hd, causal, window = case[:7]
