@@ -25,11 +25,13 @@ Phases, each of which fails the run if a check fails:
 5. on the main path's own inputs (101,376 runs, summary mode): the seeds
    route against phase 3's sweep (equal), the tensor route and the plain
    version (at the bar), with the bit-equal share; timings with CUDA
-   events (warm-up, median of 3 to 7), in turns: the fused kernel and the
-   tensor route beside their bounds, `draw_noise`, the plain version, the
+   events (warm-up, median of 3 to 7; the plain version, seconds long,
+   once), in turns: the fused kernel and the tensor route beside their
+   bounds, `draw_noise`, the plain version, the
    sweep's wall on each route, and both routes in trace mode;
 6. the flash-attention kernels (bf16 on the tensor cores, float32 on the
-   SIMT route, as `flash_attention.kernel.route` sends them) and the
+   split-TF32 tensor-core route, head dims that are no multiple of 8 on
+   the SIMT route, as `flash_attention.kernel.route` sends them) and the
    split-KV decode kernels with their combine against their plain versions
    on the card (`attention_cases`: the reference tests' shapes, head_dim
    120, ragged lengths, narrow windows, the serving shapes);
@@ -79,10 +81,10 @@ Phases, each of which fails the run if a check fails:
    `identify.fit_dynamics` (tau and the dynamic K_L at rel 0.05), the
    Poisson-heartbeat scan engine (`sweep(backend="scan")`) on phase 3's
    main grid (seed means within rtol 0.05 of phase 3's kernel route, no
-   closed-loop kernel launch, every Poisson draw resolved, a 97-seed
-   sub-grid bit-equal to the full grid's rows), its wall, runs/s, peak
-   memory, launches per step and device idle share (`torch.profiler`,
-   device activity only, over the main grid cut to 256 steps), and
+   closed-loop kernel launch, every Poisson draw resolved), its wall,
+   runs/s, peak memory, launches per step and device idle share
+   (`torch.profiler`, device activity only, over the main grid cut to
+   256 steps; a 97-seed sub-grid bit-equal to that grid's rows), and
    Fig. 7 at the reference's
    full size on both engines with its open-loop baseline (all runs
    complete, the trade-off direction holds);
@@ -93,9 +95,10 @@ Phases, each of which fails the run if a check fails:
    gains on a plant with twice gros's K_L, work 6,000; RLS-adaptive PI
    within 1.05x the fixed gains' time) and its `--full` RLS lambda grid
    (gros, dahu x 5 eps x 10 lambdas x 1,000 seeds = 100,000 runs on the
-   scan engine: all finite, a 97-seed sub-grid bit-equal; wall, runs/s,
-   peak memory, the best lambda, launches per step and idle share from a
-   256-step profile); `benchmarks/policy_faceoff.py`'s `--full` face-off
+   scan engine: all finite; wall, runs/s, peak memory, the best lambda,
+   launches per step and idle share from a 256-step profile, a 97-seed
+   sub-grid bit-equal to its rows); `benchmarks/policy_faceoff.py`'s
+   `--full` face-off
    (PI traces harvested on gros, dahu, yeti x 8 seeds, offline RL fitted
    on the card with 100 iterations, PI, offline RL and duty-cycle raced
    x 30 seeds in one heterogeneous sweep: PI and duty-cycle complete,
@@ -109,19 +112,21 @@ Phases, each of which fails the run if a check fails:
    `benchmarks/fig8_phases.py` at `--full` (offline RL fitted on a PI
    harvest of gros, dahu x 2 seeds; PI, RLS-adaptive PI, offline RL and
    duty-cycle x gros, dahu x 20 seeds on the STREAM -> DGEMM -> STREAM
-   schedule, without and with the detector) and `fig9_chaos.py` at
-   `--full` (PI, RLS-adaptive PI and duty-cycle x 6 blackout rates x 16
-   seeds x 4,000 s, unguarded and guarded), each held to the reference's
-   own `--full` numbers (`tools/scenario_reference.py`) within
+   schedule, without and with the detector) and `fig9_chaos.py`'s
+   `--full` grid at half its horizon (PI, RLS-adaptive PI and duty-cycle
+   x 6 blackout rates x 16 seeds x 2,000 s, unguarded and guarded), each
+   held to the reference's own numbers at the same sizes
+   (`tools/scenario_reference.py`) within
    `SCEN_SIGMAS` combined standard errors, the guard cutting RLS-adaptive
    PI's error at rates >= 0.10 and fig. 9's rate-0 lane bit-equal
    between the arms; the main grid under every axis at once (fig. 8's
    schedule, the detector, `chaos_schedule(0.10)`, the guard, 64-slot
-   rings): all finite, a 97-seed sub-grid bit-equal, decoded rings
+   rings): all finite, decoded rings
    against the guard's and the detector's counters and the scripts'
    windows, its wall, runs/s, peak memory, launches per step and idle
-   share (a 256-step profile), and the step loop's launches per step by
-   axis set; and bitwise neutrality at the main grid's size (512 steps):
+   share (a 256-step profile, with a 97-seed sub-grid bit-equal to its
+   rows), and the step loop's launches per step by
+   axis set; and bitwise neutrality at the main grid's size (256 steps):
    a no-op fault script, an untriggered guard and the recorder leave
    every run with no invalid signal equal to the plain sweep's;
 14. the execution layer and the NRM runtime on the card (`[runtime]`
@@ -132,7 +137,7 @@ Phases, each of which fails the run if a check fails:
    device memory under half of what the grid would hold one-shot, beside
    a one-shot grid of about one chunk, a 97-seed sub-grid bit-equal to
    its own one-shot sweep); (c)
-   the scan engine on 4,096 runs at 2,048 steps in 2 chunks, bit-equal
+   the scan engine on 4,096 runs at 512 steps in 2 chunks, bit-equal
    to one-shot, with both walls; (d) `sweep(durable=dir)` of the main
    grid under `FlakyGridFn` transients (one injected fault, one CUDA
    out-of-memory error), then the same campaign in a spawned child that
@@ -140,7 +145,7 @@ Phases, each of which fails the run if a check fails:
    it, both bit-equal to phase 3; (e) `NRM.run_simulated` on gros at
    eps 0.0 and 0.1 over 8 seeds (256-step bucket) held to the reference
    tests' headline bars, a 3-segment resumed run whose work keeps
-   rising, and 500 `control_step` periods on a `SimulatedPowerActuator`
+   rising, and 200 `control_step` periods on a `SimulatedPowerActuator`
    on the card and on the CPU (ms per period); (f) `serve.main` with
    ``--power`` on qwen3-8b at full width, its tokens equal to phase 7's,
    its decode tok/s against phase 7's and the simulated energy and time;
@@ -176,9 +181,9 @@ Phases, each of which fails the run if a check fails:
    beside the bar), the backward's time a layer with each launch's,
    beside SDPA's backward, the plain version's, the plain route's
    autograd and the bound; (c) starcoder2-3b widths x 2 layers in
-   float32, the loss and every grad leaf of the kernel path (the SIMT
-   backward) against the plain path, flash launches and backward-kernel
-   calls under remat
+   float32, the loss and every grad leaf of the kernel path (the
+   split-TF32 backward) against the plain path, flash launches and
+   backward-kernel calls under remat
    full / dots / none; (b) starcoder2-3b at full width and depth,
    `make_train_step` at batch 4 x 2,048 for 6 steps (the first step's
    loss and grad norm against the plain path, 60 flash launches and 30
@@ -277,10 +282,14 @@ EPS_GRID = [round(0.05 * i, 2) for i in range(11)]
 # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet); the attention
 # kernels' inputs are bf16 on the serving path, where both run on the
 # tensor cores, so their operation bound is taken at this rate.
-# FP32_PER_S is the float32 rate outside the tensor cores, the floor of
-# the flash kernel's float32 (SIMT) route.
+# FP32_PER_S is the float32 rate outside the tensor cores (the floor of an
+# FMA kernel in float32), TF32_PER_S the dense TF32 tensor-core rate: the
+# flash kernels' float32 route does three TF32 products for each float32
+# one (split TF32), so its floor is 3 x its flops at TF32_PER_S.
 BF16_PER_S = 989e12
 FP32_PER_S = 67e12
+TF32_PER_S = 495e12
+TF32_SPLIT = 3
 # the serving run of phase 7: qwen3-8b at full width and depth, nothing cut
 SERVE_ARGV = ["--arch", "qwen3-8b", "--batch", "8", "--prompt-len", "1024",
               "--gen", "32", "--seed", "0", "--quiet"]
@@ -326,6 +335,14 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
+def flash_route_of(dtype: str, hd: int) -> str:
+    """The flash route a case must take: the tensor cores at head_dim a
+    multiple of 8 (bf16 "wgmma", float32 "tf32x3"), else "simt"."""
+    if hd % 8:
+        return "simt"
+    return "wgmma" if dtype == "bfloat16" else "tf32x3"
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -359,11 +376,15 @@ def rel_err(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def hopper_paths(wgmma_lib, bwd_lib, decode_lib) -> None:
+def hopper_paths(wgmma_lib, bwd_lib, decode_lib, tf32_lib,
+                 bwd_tf32_lib) -> None:
     """The built SASS of the attention kernels: the bf16 flash kernel (both
     head-dim instances) issues warpgroup products (HGMMA) and TMA loads
     (UTMALDG); so do the bf16 flash backward's dK / dV and dQ kernels
     (both head-dim instances), which hold no warp-level mma.sync (HMMA);
+    every instance of the float32 (split TF32) forward and backward
+    kernels issues TF32 warpgroup products (HGMMA ... .F32.TF32) on tiles
+    that TMA loads (its local memory, spilled registers, is printed);
     the decode kernels (bf16 and float32 at hd 128) copy the cache with
     16-byte loads only (LDGSTS ... .128), and the bf16 one multiplies on
     the tensor cores (HMMA)."""
@@ -391,6 +412,21 @@ def hopper_paths(wgmma_lib, bwd_lib, decode_lib) -> None:
                   + ", ".join(sorted(op for op in ops
                                      if op.startswith("HGMMA.")))
                   + f"), {n['UTMALDG']} UTMALDG, {n['HMMA']} HMMA")
+    parts = [(tf32_lib, f"flash_fwd_tf32_kernelILi{hdp}E")
+             for hdp in (32, 64, 128)]
+    parts += [(bwd_tf32_lib, f"flash_bwd_tf32_kernelILi{hdp}ELb{dkdv}E")
+              for hdp in (32, 64, 128) for dkdv in (1, 0)]
+    for lib, part in parts:
+        ops = sass.opcodes(sass.kernel_instructions(lib, part))
+        tf32 = {op: n for op, n in ops.items()
+                if op.startswith("HGMMA.") and op.endswith(".F32.TF32")}
+        tma = sum(n for op, n in ops.items() if op.startswith("UTMALDG."))
+        local = sass.local_memory(ops)
+        check(tf32 and tma > 0,
+              f"{part}: TF32 HGMMA {tf32}, {tma} UTMALDG")
+        print(f"[setup] {part} SASS: " + ", ".join(
+            f"{n} {op}" for op, n in sorted(tf32.items()))
+            + f", {tma} UTMALDG, local memory {local or 'none'}")
     for part in ("decode_attention_mma_kernelILi128E",
                  "decode_attention_kernelIfLi128ELi4E"):
         ops = sass.opcodes(sass.kernel_instructions(decode_lib, part))
@@ -544,7 +580,7 @@ def attention_parity(dev) -> dict:
         causal, window, dtype = case[5:]
         q, k, v = AC.flash_inputs(case, dev)
         path = FK.route(q.dtype, q.shape[-1])
-        check(path == ("wgmma" if dtype == "bfloat16" else "simt"),
+        check(path == flash_route_of(dtype, q.shape[-1]),
               f"flash {case} routed to {path}")
         before = FK.ROUTE_LAUNCHES[path]
         got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -816,7 +852,7 @@ def serving_path(dev):
     # count every call of a plain path: the serving run makes none
     with counting_plain_calls() as plain:
         FK.LAUNCHES, DK.LAUNCHES = 0, 0
-        FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        FK.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
         t0 = time.perf_counter()
         res = serve.main(SERVE_ARGV)
         wall = time.perf_counter() - t0
@@ -826,8 +862,9 @@ def serving_path(dev):
     L = cfg.num_layers
     check(launches == {"flash_attention": L, "decode_attention": L * GEN},
           f"serving launches {launches}, expected {L} and {L * GEN}")
-    check(routes == {"wgmma": L, "simt": 0}, f"flash launches by route "
-          f"{routes}: every prefill layer must take the tensor-core kernel")
+    check(routes == {"wgmma": L, "tf32x3": 0, "simt": 0}, f"flash launches "
+          f"by route {routes}: every prefill layer must take the bf16 "
+          f"tensor-core kernel")
     check(plain[0] == 0, f"serving path called a plain version "
           f"{plain[0]} times")
     gen = res["generated"]
@@ -840,7 +877,8 @@ def serving_path(dev):
           f"prompt {P}, {GEN} tokens: main() {wall:.2f} s wall (weights, "
           f"prefill, decode); decode loop {res['wall_s']} s, "
           f"{res['tok_per_s_sim']} tok/s; launches flash {L} (by route: "
-          f"wgmma {routes['wgmma']}, simt {routes['simt']}), decode "
+          f"wgmma {routes['wgmma']}, tf32x3 {routes['tf32x3']}, simt "
+          f"{routes['simt']}), decode "
           f"{L * GEN} (one partials and one combine kernel each); "
           f"plain-version calls 0; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -885,6 +923,22 @@ def serving_path(dev):
     return launches, params, batch, res
 
 
+def device_events(prof) -> list:
+    """(name, microseconds) of each device event of a finished
+    `torch.profiler.profile`, read from the profiler's raw results: the
+    `prof.events()` list builds a `FunctionEvent` and its tree for every
+    event, ~0.15 ms an event on the host, which over a step loop's 10^5
+    launches took half a minute a profile (measured on an H100's host)."""
+    from torch.autograd import DeviceType
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        return [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA]
+    return [(ev.name(), ev.duration_ns() / 1e3) for ev in raw.events()
+            if ev.device_type() == DeviceType.CUDA
+            and not getattr(ev, "is_hidden_event", lambda: False)()]
+
+
 def device_breakdown(fn, label: str, host_ops: bool = True,
                      quiet: bool = False):
     """Print the device time of one call of ``fn`` by kernel family and
@@ -895,7 +949,6 @@ def device_breakdown(fn, label: str, host_ops: bool = True,
     of thousands of launches, recording every host op slows the host and
     so inflates the idle share it reads. ``quiet`` prints nothing."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
         torch.cuda.synchronize()
@@ -906,10 +959,8 @@ def device_breakdown(fn, label: str, host_ops: bool = True,
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         groups = {}
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            name = ev.name.lower()
+        for name, us in device_events(prof):
+            name = name.lower()
             fam = ("closed_loop kernel" if "closed_loop" in name else
                    "copies" if "memcpy" in name or "memset" in name else
                    "flash_attention kernel" if "flash_fwd" in name else
@@ -919,8 +970,8 @@ def device_breakdown(fn, label: str, host_ops: bool = True,
                    else "matmul" if any(w in name for w in (
                        "gemm", "cutlass", "xmma", "nvjet", "sm90"))
                    else "other")
-            n, us = groups.get(fam, (0, 0.0))
-            groups[fam] = (n + 1, us + ev.time_range.elapsed_us())
+            n, total = groups.get(fam, (0, 0.0))
+            groups[fam] = (n + 1, total + us)
         busy = sum(us for _, us in groups.values())
         if not groups:
             print(f"[profile] {label}: no device events; not measured")
@@ -937,6 +988,18 @@ def device_breakdown(fn, label: str, host_ops: bool = True,
     except Exception as e:  # a reading only: the smoke's checks stand
         print(f"[profile] {label}: not measured ({type(e).__name__}: {e})")
         return None
+
+
+def profiled(run, label: str):
+    """(``run()``'s result, `device_breakdown`'s reading of that one call,
+    device activity only): the result of the profiled call is kept, or
+    made again without the profiler where the profiler failed."""
+    box = {}
+    prof = device_breakdown(lambda: box.update(res=run()), label,
+                            host_ops=False)
+    if "res" not in box:
+        box["res"] = run()
+    return box["res"], prof
 
 
 def attention_timings(dev, serving, errs) -> list:
@@ -985,7 +1048,7 @@ def attention_timings(dev, serving, errs) -> list:
 
     rows = []
     # flash attention, one prefill layer: the tensor-core kernel (bf16, the
-    # serving path's) and SDPA in turns, then the float32 SIMT route
+    # serving path's) and SDPA in turns, then the float32 (split-TF32) route
     B, S, H, K, hd = AC.FLASH_SERVE[:5]
     q, k, v = AC.flash_inputs(AC.FLASH_SERVE, dev)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1009,6 +1072,8 @@ def attention_timings(dev, serving, errs) -> list:
                                                is_causal=True,
                                                enable_gqa=True),
         reps=5, warmup=1)
+    f32_plain = cuda_ms(lambda: FR.attention_ref(q32, k32, v32), reps=5,
+                        warmup=1)
     del q32, k32, v32, qt32, kt32, vt32
     f_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     # causal: each row attends to its own prefix, S (S + 1) / 2 pairs, and
@@ -1017,7 +1082,13 @@ def attention_timings(dev, serving, errs) -> list:
     f_bytes_ms = f_bytes / HBM_BYTES_PER_S * 1e3
     f_ops_ms = f_flops / BF16_PER_S * 1e3
     f_bound = max(f_bytes_ms, f_ops_ms)
-    f32_bound = max(2 * f_bytes_ms, f_flops / FP32_PER_S * 1e3)
+    # float32: the bytes twice bf16's; its floor on the split-TF32 route
+    # (three TF32 products a product) and an FMA kernel's outside the
+    # tensor cores
+    f32_route = FK.route(torch.float32, hd)
+    f32_bound = max(2 * f_bytes_ms,
+                    TF32_SPLIT * f_flops / TF32_PER_S * 1e3)
+    f32_ffma = max(2 * f_bytes_ms, f_flops / FP32_PER_S * 1e3)
     print(f"[time] flash_attention tensor-core kernel {AC.FLASH_SERVE}: "
           f"{f_ms:.4f} ms on the card ({f_call:.4f} ms per call with the "
           f"host's enqueue); bound {f_bound:.4f} ms by "
@@ -1029,11 +1100,15 @@ def attention_timings(dev, serving, errs) -> list:
           f"{f_plain:.3f} ms; scaled_dot_product_attention {f_lib:.4f} ms "
           f"({f_lib_call:.4f} ms per call); kernel / SDPA "
           f"{f_ms / f_lib:.3f}")
-    print(f"[time] flash_attention SIMT route, float32 at the same shape: "
-          f"{f32_ms:.4f} ms on the card; its floor {f32_bound:.4f} ms (the "
-          f"flops at the float32 rate outside the tensor cores); "
-          f"scaled_dot_product_attention in float32 {f32_lib:.4f} ms "
-          f"(kernel / SDPA {f32_ms / f32_lib:.3f})")
+    print(f"[time] flash_attention {f32_route} route, float32 at the same "
+          f"shape, in turns with scaled_dot_product_attention in float32: "
+          f"{f32_ms:.4f} ms on the card; SDPA {f32_lib:.4f} ms (kernel / "
+          f"SDPA {f32_ms / f32_lib:.3f}); bound {f32_bound:.4f} ms (3 x "
+          f"{f_flops:.4g} flop at the TF32 tensor rate), "
+          f"{100 * f32_bound / f32_ms:.1f}% of it; an FMA kernel's floor "
+          f"{f32_ffma:.4f} ms (the flops at the float32 rate outside the "
+          f"tensor cores), {100 * f32_ffma / f32_ms:.1f}% of it; plain "
+          f"version in float32 {f32_plain:.3f} ms")
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1043,8 +1118,10 @@ def attention_timings(dev, serving, errs) -> list:
         "max_abs_err": errs["flash_attention"], "ms": f_ms,
         "plain_ms": f_plain, "bound_ms": f_bound,
         "bound_by": "operations" if f_ops_ms >= f_bytes_ms else "bytes",
-        "library_ms": f_lib, "float32_ms": f32_ms,
-        "float32_library_ms": f32_lib})
+        "library_ms": f_lib, "float32_route": f32_route,
+        "float32_ms": f32_ms, "float32_library_ms": f32_lib,
+        "float32_plain_ms": f32_plain,
+        "float32_bound_ms": f32_bound, "float32_ffma_bound_ms": f32_ffma})
     del q, k, v, qt, kt, vt
 
     # split-KV decode, one decode layer (partials and combine, one call);
@@ -1224,7 +1301,7 @@ def jamba_serving(dev, scan_err) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with counting_plain_calls() as plain:
         SK.LAUNCHES, FK.LAUNCHES, DK.LAUNCHES = 0, 0, 0
-        FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        FK.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
         SK.ROUTE_LAUNCHES.update(seq=0, step=0)
         SK.GENERIC_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1245,8 +1322,9 @@ def jamba_serving(dev, scan_err) -> dict:
           f"take the sequence instance, every decode step the step one")
     check(scan_generic == 0, f"jamba scan: {scan_generic} launches took the "
           f"masked generic template; every launch must take an exact one")
-    check(routes == {"wgmma": n_attn, "simt": 0}, f"jamba flash launches "
-          f"by route {routes}: the prefill must take the tensor-core kernel")
+    check(routes == {"wgmma": n_attn, "tf32x3": 0, "simt": 0}, f"jamba "
+          f"flash launches by route {routes}: the prefill must take the "
+          f"bf16 tensor-core kernel")
     check(plain[0] == 0, f"jamba serving path called a plain version "
           f"{plain[0]} times")
     gen = res["generated"]
@@ -1259,9 +1337,10 @@ def jamba_serving(dev, scan_err) -> dict:
           f"prefill, decode); decode loop {res['wall_s']} s, "
           f"{res['tok_per_s_sim']} tok/s; launches " + ", ".join(
               f"{k} {v}" for k, v in launches.items())
-          + f" (flash by route: wgmma {routes['wgmma']}, simt "
-          f"{routes['simt']}; scan by instance: seq {scan_routes['seq']}, "
-          f"step {scan_routes['step']}, generic template {scan_generic})"
+          + f" (flash by route: wgmma {routes['wgmma']}, tf32x3 "
+          f"{routes['tf32x3']}, simt {routes['simt']}; scan by instance: "
+          f"seq {scan_routes['seq']}, step {scan_routes['step']}, generic "
+          f"template {scan_generic})"
           + f"; plain-version calls 0; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -1315,10 +1394,17 @@ def jamba_serving(dev, scan_err) -> dict:
                                 compute_dtype="float32")
     p32 = init_params(cfg32, 0, dev)
     batch32 = serve.make_prompts(cfg32, 2, P, 0, dev)
+    FK.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
     series32, _ = compare_paths(cfg32, p32, batch32, GEN_F32, gen[:2], kern,
                                 plain_opts)
+    routes32 = dict(FK.ROUTE_LAUNCHES)
+    check(routes32 == {"wgmma": 0, "tf32x3": n_attn, "simt": 0},
+          f"jamba float32 flash launches by route {routes32}: the kernel "
+          f"path's prefill must take the split-TF32 kernel")
     print_comparison("jamba f32", series32, None, 0, JAMBA_F32_REL_TOL,
                      "attn_impl 'reference', scan_impl 'chunked'")
+    print(f"[jamba] float32 kernel path: flash launches by route {routes32} "
+          f"(the prefill's attention layers on the split-TF32 kernel)")
     check(worst_kernel_err(series32) <= JAMBA_F32_REL_TOL,
           f"jamba float32 kernel-path logits rel L2 err "
           f"{worst_kernel_err(series32)} > {JAMBA_F32_REL_TOL}")
@@ -1435,25 +1521,35 @@ LAM_GRID = (("gros", "dahu"), (0.02, 0.05, 0.1, 0.15, 0.2), range(1000))
 LAM_KW = dict(total_work=1200.0, max_time=1024.0, collect_traces=False)
 # 97 of the lambda grid's 1,000 seeds (every 10th below 960, and the last)
 LAM_SUB = list(range(0, 960, 10)) + [999]
-SHIFT_KW = dict(total_work=6000.0, max_time=1024.0, seed=6)
+# The scan engine's cost is its step bucket whatever the work (4-5 ms a
+# step on an H100's host), and runs that complete early give the same
+# numbers in any bucket that holds them: the gain shift (done at 250 s)
+# and the lane check (PI and duty-cycle, done by 117 s) run at 512 s, the
+# benchmark's 1,024 s halved, with the same numbers (checked on the CPU);
+# the race keeps 1,024 s (offline RL on dahu takes ~500 s)
+SHIFT_KW = dict(total_work=6000.0, max_time=512.0, seed=6)
 RACE_PROFS, RACE_EPS = ("gros", "dahu", "yeti"), 0.1
 RACE_KW = dict(total_work=2000.0, max_time=1024.0)
+LANE_TIME = 512.0
 
 
 # ---- phase 13: the scenario axes (phased workloads, detector, faults,
 # guard, flight recorder) on the card --------------------------------------
 
-# `benchmarks/fig8_phases.py` and `fig9_chaos.py` at their `--full` sizes
+# `benchmarks/fig8_phases.py` at its `--full` size and `fig9_chaos.py`'s
+# `--full` grid at 2,000 s, half its horizon (five 400 s chaos cycles of
+# ten): the scan engine's step loop is host-bound, and the 4,096-step
+# bucket's two sweeps took 75-129 s on an H100's host
 F8_PROFS, F8_EPS, F8_DWELL, F8_TIME, F8_SEEDS = ("gros", "dahu"), 0.1, \
     250.0, 750.0, 20
 F8_NAMES = ("pi", "pi_rls", "offline_rl", "dutycycle")
-F9_PERIOD, F9_START, F9_TIME, F9_SEEDS = 400.0, 80.0, 4000.0, 16
+F9_PERIOD, F9_START, F9_TIME, F9_SEEDS = 400.0, 80.0, 2000.0, 16
 F9_RATES = (0.0, 0.02, 0.05, 0.10, 0.15, 0.25)
 F9_NAMES = ("pi", "pi_rls", "dutycycle")
 STREAM = {"alpha": 3.0, "beta": 0.6}
 DGEMM = {"alpha": 0.3, "beta": 1.14, "K_L": 2.0}
-# The reference's own `--full` numbers: `tools/scenario_reference.py`, the
-# JAX package on the CPU. Fig. 8 per (arm, policy, profile): mean energy
+# The reference's own numbers at these sizes: `tools/scenario_reference.py`,
+# the JAX package on the CPU. Fig. 8 per (arm, policy, profile): mean energy
 # [J], its standard error over the 20 seeds, J/work, median progress over
 # the setpoint, alarms per run. Fig. 9 per (arm, policy, rate): tracking
 # error, its standard error over the 16 seeds, error over the clean error,
@@ -1477,42 +1573,42 @@ F8_REF = {
     ("detector", "dutycycle", "dahu"): (60476.45, 334.15, 2.00863, 1.14886, 9.000),
 }
 F9_REF = {
-    ("unguarded", "pi", 0.0): (0.002581, 0.000450, 1.0000, 3.32114, 0.0),
-    ("unguarded", "pi", 0.02): (0.002612, 0.000492, 1.0119, 3.34935, 0.0),
-    ("unguarded", "pi", 0.05): (0.005562, 0.000635, 2.1551, 3.38109, 0.0),
-    ("unguarded", "pi", 0.1): (0.011677, 0.000629, 4.5245, 3.43513, 0.0),
-    ("unguarded", "pi", 0.15): (0.017345, 0.000681, 6.7205, 3.48659, 0.0),
-    ("unguarded", "pi", 0.25): (0.028362, 0.000611, 10.9894, 3.58694, 0.0),
-    ("unguarded", "pi_rls", 0.0): (0.002534, 0.000507, 1.0000, 3.32170, 0.0),
-    ("unguarded", "pi_rls", 0.02): (0.003459, 0.000654, 1.3651, 3.34980, 0.0),
-    ("unguarded", "pi_rls", 0.05): (0.002310, 0.000429, 0.9114, 3.38002, 0.0),
-    ("unguarded", "pi_rls", 0.1): (0.075118, 0.001070, 29.6442, 3.71221, 0.0),
-    ("unguarded", "pi_rls", 0.15): (0.112481, 0.001295, 44.3889, 3.91329, 0.0),
-    ("unguarded", "pi_rls", 0.25): (0.113396, 0.000457, 44.7499, 4.08765, 0.0),
-    ("unguarded", "dutycycle", 0.0): (0.091964, 0.000259, 1.0000, 4.00151, 0.0),
-    ("unguarded", "dutycycle", 0.02): (0.092478, 0.000251, 1.0056, 4.00791, 0.0),
-    ("unguarded", "dutycycle", 0.05): (0.093033, 0.000231, 1.0116, 4.01631, 0.0),
-    ("unguarded", "dutycycle", 0.1): (0.094065, 0.000220, 1.0228, 4.03072, 0.0),
-    ("unguarded", "dutycycle", 0.15): (0.095087, 0.000191, 1.0340, 4.04522, 0.0),
-    ("unguarded", "dutycycle", 0.25): (0.097058, 0.000177, 1.0554, 4.07312, 0.0),
-    ("guarded", "pi", 0.0): (0.002581, 0.000450, 1.0000, 3.32114, 0.00000),
-    ("guarded", "pi", 0.02): (0.003010, 0.000591, 1.1664, 3.32362, 0.00000),
-    ("guarded", "pi", 0.05): (0.003407, 0.000596, 1.3203, 3.32757, 0.00000),
-    ("guarded", "pi", 0.1): (0.004198, 0.000759, 1.6266, 3.33598, 0.00000),
-    ("guarded", "pi", 0.15): (0.005600, 0.001024, 2.1699, 3.34175, 0.00000),
-    ("guarded", "pi", 0.25): (0.008181, 0.001421, 3.1699, 3.44330, 0.10000),
-    ("guarded", "pi_rls", 0.0): (0.002534, 0.000507, 1.0000, 3.32170, 0.00000),
-    ("guarded", "pi_rls", 0.02): (0.002694, 0.000514, 1.0631, 3.32282, 0.00000),
-    ("guarded", "pi_rls", 0.05): (0.002763, 0.000555, 1.0903, 3.32800, 0.00000),
-    ("guarded", "pi_rls", 0.1): (0.003592, 0.000719, 1.4176, 3.33495, 0.00000),
-    ("guarded", "pi_rls", 0.15): (0.004729, 0.000810, 1.8662, 3.34213, 0.00000),
-    ("guarded", "pi_rls", 0.25): (0.012612, 0.001586, 4.9772, 3.44924, 0.10000),
-    ("guarded", "dutycycle", 0.0): (0.091964, 0.000259, 1.0000, 4.00151, 0.00000),
-    ("guarded", "dutycycle", 0.02): (0.091191, 0.000246, 0.9916, 3.99540, 0.00000),
-    ("guarded", "dutycycle", 0.05): (0.090407, 0.000266, 0.9831, 3.98923, 0.00000),
-    ("guarded", "dutycycle", 0.1): (0.088961, 0.000447, 0.9673, 3.97807, 0.00000),
-    ("guarded", "dutycycle", 0.15): (0.087461, 0.000674, 0.9510, 3.96665, 0.00000),
-    ("guarded", "dutycycle", 0.25): (0.089335, 0.000698, 0.9714, 3.99426, 0.10000),
+    ("unguarded", "pi", 0.0): (0.003443, 0.000574, 1.0000, 3.32402, 0.0),
+    ("unguarded", "pi", 0.02): (0.003372, 0.000737, 0.9795, 3.35300, 0.0),
+    ("unguarded", "pi", 0.05): (0.005717, 0.000905, 1.6605, 3.38353, 0.0),
+    ("unguarded", "pi", 0.1): (0.011713, 0.000870, 3.4023, 3.43638, 0.0),
+    ("unguarded", "pi", 0.15): (0.017329, 0.000903, 5.0335, 3.48827, 0.0),
+    ("unguarded", "pi", 0.25): (0.027932, 0.000820, 8.1136, 3.58735, 0.0),
+    ("unguarded", "pi_rls", 0.0): (0.003301, 0.000729, 1.0000, 3.32571, 0.0),
+    ("unguarded", "pi_rls", 0.02): (0.004105, 0.000804, 1.2436, 3.35200, 0.0),
+    ("unguarded", "pi_rls", 0.05): (0.003823, 0.000987, 1.1581, 3.38657, 0.0),
+    ("unguarded", "pi_rls", 0.1): (0.075693, 0.001954, 22.9310, 3.71693, 0.0),
+    ("unguarded", "pi_rls", 0.15): (0.112236, 0.001922, 34.0015, 3.91209, 0.0),
+    ("unguarded", "pi_rls", 0.25): (0.110223, 0.000588, 33.3915, 4.07635, 0.0),
+    ("unguarded", "dutycycle", 0.0): (0.092141, 0.000335, 1.0000, 4.00349, 0.0),
+    ("unguarded", "dutycycle", 0.02): (0.092627, 0.000353, 1.0053, 4.00995, 0.0),
+    ("unguarded", "dutycycle", 0.05): (0.093233, 0.000344, 1.0119, 4.01881, 0.0),
+    ("unguarded", "dutycycle", 0.1): (0.094312, 0.000337, 1.0236, 4.03345, 0.0),
+    ("unguarded", "dutycycle", 0.15): (0.095269, 0.000293, 1.0340, 4.04760, 0.0),
+    ("unguarded", "dutycycle", 0.25): (0.097147, 0.000256, 1.0543, 4.07488, 0.0),
+    ("guarded", "pi", 0.0): (0.003443, 0.000574, 1.0000, 3.32402, 0.00000),
+    ("guarded", "pi", 0.02): (0.004093, 0.000736, 1.1888, 3.32703, 0.00000),
+    ("guarded", "pi", 0.05): (0.004400, 0.000743, 1.2782, 3.33063, 0.00000),
+    ("guarded", "pi", 0.1): (0.005989, 0.000974, 1.7397, 3.33891, 0.00000),
+    ("guarded", "pi", 0.15): (0.007569, 0.001325, 2.1985, 3.34557, 0.00000),
+    ("guarded", "pi", 0.25): (0.009308, 0.001713, 2.7038, 3.44654, 0.10000),
+    ("guarded", "pi_rls", 0.0): (0.003301, 0.000729, 1.0000, 3.32571, 0.00000),
+    ("guarded", "pi_rls", 0.02): (0.003158, 0.000665, 0.9568, 3.32647, 0.00000),
+    ("guarded", "pi_rls", 0.05): (0.003730, 0.000658, 1.1301, 3.33192, 0.00000),
+    ("guarded", "pi_rls", 0.1): (0.005154, 0.000876, 1.5614, 3.33831, 0.00000),
+    ("guarded", "pi_rls", 0.15): (0.007020, 0.001096, 2.1265, 3.34762, 0.00000),
+    ("guarded", "pi_rls", 0.25): (0.014105, 0.001810, 4.2730, 3.45330, 0.10000),
+    ("guarded", "dutycycle", 0.0): (0.092141, 0.000335, 1.0000, 4.00349, 0.00000),
+    ("guarded", "dutycycle", 0.02): (0.091424, 0.000355, 0.9922, 3.99769, 0.00000),
+    ("guarded", "dutycycle", 0.05): (0.090681, 0.000385, 0.9842, 3.99172, 0.00000),
+    ("guarded", "dutycycle", 0.1): (0.089295, 0.000584, 0.9691, 3.98032, 0.00000),
+    ("guarded", "dutycycle", 0.15): (0.087871, 0.000858, 0.9537, 3.96863, 0.00000),
+    ("guarded", "dutycycle", 0.25): (0.089712, 0.000844, 0.9736, 3.99590, 0.10000),
 }
 # The card's figures against the reference's: the two packages draw
 # independent random streams, so a cell's difference has the standard
@@ -1586,8 +1682,9 @@ def loop_launches(sim, flt, dev, steps, workloads=None, detector=None,
 
 def scenarios_phase(dev, main_grid, main_kw, smi) -> None:
     """Phase 13: the scenario axes on the card (no kernel of their own;
-    every run on the scan engine): Fig. 8 and Fig. 9 at the reference's
-    `--full` sizes against the reference's numbers, the main grid under
+    every run on the scan engine): Fig. 8 at the reference's `--full` size
+    and Fig. 9 at its `--full` grid over half the horizon, against the
+    reference's numbers at the same sizes, the main grid under
     every axis at once, and bitwise neutrality at the main grid's size."""
     import torch
     from repro_torch.core import faults as flt
@@ -1675,7 +1772,7 @@ def scenarios_phase(dev, main_grid, main_kw, smi) -> None:
           f"{worst8:.2f} combined standard errors off the reference "
           f"(bar {SCEN_SIGMAS})")
 
-    # ---- b. Fig. 9 at --full: the chaos grid, unguarded and guarded -----
+    # ---- b. Fig. 9, --full grid at 2,000 s: unguarded and guarded ------
     setpoint = (1.0 - F8_EPS) * PROFILES["gros"].progress_max
     scheds = [chaos_schedule(flt, r) for r in F9_RATES]
     runs9, worst9 = {}, 0.0
@@ -1775,18 +1872,6 @@ def scenarios_phase(dev, main_grid, main_kw, smi) -> None:
     check(res.events.shape == res.energy.shape + (evt.ring_dim(64),),
           "ring shape")
     ring_mb = res.events.nbytes / 1e6
-    t1 = time.perf_counter()
-    sub = sim.sweep(main_grid[0], main_grid[1], SUB_SEEDS, **kw)
-    sub_wall = time.perf_counter() - t1
-    for k in ("energy", "work", "exec_time", "n_steps", "detections",
-              "guard_state", "events"):
-        check(np.array_equal(getattr(sub, k),
-                             getattr(res, k)[:, :, SUB_SEEDS]),
-              f"all axes: sub-grid {k} != the full grid's rows")
-    for k in ("progress_mean", "progress_std", "power_mean",
-              "progress_hist", "pcap_hist"):
-        check(np.array_equal(sub.summary[k], res.summary[k][:, :, SUB_SEEDS]),
-              f"all axes: sub-grid summary {k} != the full grid's rows")
     # decoded rings against the guard's counters and the scripts
     P, E, S = res.energy.shape
     whole, picked = 0, [(p, e, s) for p in range(P)
@@ -1822,24 +1907,39 @@ def scenarios_phase(dev, main_grid, main_kw, smi) -> None:
           f"finite, every Poisson draw resolved; mean alarms a run "
           f"{res.detections.mean():.3f}, fail-safe periods a run "
           f"{res.guard_state[..., flt.G_N_FAILSAFE].mean():.3f}, events a "
-          f"run {res.events[..., evt.H_TOTAL].mean():.2f}; sub-grid of "
-          f"{len(SUB_SEEDS)} seeds ({sub.energy.size} runs) bit-equal to "
-          f"its rows ({sub_wall:.3f} s); {whole} of {len(picked)} decoded "
-          f"rings held their whole timeline and agree with the guard's and "
-          f"the detector's counters and the scripts' windows")
-    del res, sub
+          f"run {res.events[..., evt.H_TOTAL].mean():.2f}; {whole} of "
+          f"{len(picked)} decoded rings held their whole timeline and agree "
+          f"with the guard's and the detector's counters and the scripts' "
+          f"windows")
+    del res
     t0 = time.perf_counter()
-    prof = device_breakdown(
-        lambda: sim.sweep(*main_grid, **dict(kw, max_time=float(
-            PROFILE_STEPS))),
-        f"all axes, {n_runs} runs x {PROFILE_STEPS} steps", host_ops=False)
+    short = dict(kw, max_time=float(PROFILE_STEPS))
+    res, prof = profiled(
+        lambda: sim.sweep(*main_grid, **short),
+        f"all axes, {n_runs} runs x {PROFILE_STEPS} steps")
+    t1 = time.perf_counter()
+    sub = sim.sweep(main_grid[0], main_grid[1], SUB_SEEDS, **short)
+    sub_wall = time.perf_counter() - t1
+    for k in ("energy", "work", "exec_time", "n_steps", "detections",
+              "guard_state", "events"):
+        check(np.array_equal(getattr(sub, k),
+                             getattr(res, k)[:, :, SUB_SEEDS]),
+              f"all axes: sub-grid {k} != the full grid's rows")
+    for k in ("progress_mean", "progress_std", "power_mean",
+              "progress_hist", "pcap_hist"):
+        check(np.array_equal(sub.summary[k], res.summary[k][:, :, SUB_SEEDS]),
+              f"all axes: sub-grid summary {k} != the full grid's rows")
+    print(f"[scenario] all axes: sub-grid of {len(SUB_SEEDS)} seeds "
+          f"({sub.energy.size} runs) at {PROFILE_STEPS} steps bit-equal to "
+          f"the profiled full grid's rows ({sub_wall:.3f} s)")
+    del res, sub
     if prof is not None:
         print(f"[scenario] all axes: {prof['launches'] / PROFILE_STEPS:.1f} "
               f"device launches per step ({prof['launches']} in "
               f"{PROFILE_STEPS} steps, set-up included), device idle "
               f"{100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}% of the "
-              f"profiled wall ({time.perf_counter() - t0:.1f} s with the "
-              f"profiler's own work)")
+              f"profiled wall ({t1 - t0:.1f} s with the profiler's own "
+              f"work)")
     walls["all axes"], walls["its sub-grid"] = wall, sub_wall
     # launches per step by axis set: the step loop of a 1,024-run batch,
     # packed PI
@@ -1863,11 +1963,11 @@ def scenarios_phase(dev, main_grid, main_kw, smi) -> None:
               + f" ({time.perf_counter() - t0:.1f} s)")
 
     # ---- d. bitwise neutrality at the main grid's size ------------------
-    kw512 = dict(main_kw, max_time=512.0, backend="scan",
+    kw_short = dict(main_kw, max_time=float(PROFILE_STEPS), backend="scan",
                  policies=PIPolicy())
     t0 = time.perf_counter()
-    plain = sim.sweep(*main_grid, **kw512)
-    armed = sim.sweep(*main_grid, **kw512, faults=flt.FaultSchedule(()),
+    plain = sim.sweep(*main_grid, **kw_short)
+    armed = sim.sweep(*main_grid, **kw_short, faults=flt.FaultSchedule(()),
                       guard=flt.GuardConfig(), record_events=True)
     walls["neutrality (2 sweeps)"] = time.perf_counter() - t0
     ok = armed.guard_state[..., flt.G_N_INVALID] == 0
@@ -1882,7 +1982,8 @@ def scenarios_phase(dev, main_grid, main_kw, smi) -> None:
     check(bool(same[ok].all()) and bool(quiet[ok].all()),
           f"neutrality: {int((~same & ok).sum())} runs with no invalid "
           f"signal differ, {int((~quiet & ok).sum())} recorded events")
-    print(f"[scenario] neutrality (phase 3's grid cut to 512 steps, scan "
+    print(f"[scenario] neutrality (phase 3's grid cut to {PROFILE_STEPS} "
+          f"steps, scan "
           f"engine, packed PI): with FaultSchedule([]), GuardConfig() and "
           f"64-slot rings, {int(ok.sum())} of {ok.size} runs counted no "
           f"invalid signal, and every one of them equals the plain sweep's "
@@ -2016,10 +2117,16 @@ def paper_workflow(dev, main_grid, main_kw, kernel_means, smi) -> None:
           f"route, worst relative gap: "
           + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
           + f" (bar {ENGINE_RTOL})")
+    del res
     t0 = time.perf_counter()
-    sub = sim.sweep(main_grid[0], main_grid[1], SUB_SEEDS, **main_kw,
+    short = dict(main_kw, max_time=float(PROFILE_STEPS))
+    res, prof = profiled(
+        lambda: sim.sweep(*main_grid, **short, backend="scan"),
+        f"scan sweep, {n_runs} runs x {PROFILE_STEPS} steps")
+    t1 = time.perf_counter()
+    sub = sim.sweep(main_grid[0], main_grid[1], SUB_SEEDS, **short,
                     backend="scan")
-    sub_wall = time.perf_counter() - t0
+    sub_wall = time.perf_counter() - t1
     rows = (Ellipsis, SUB_SEEDS)
     for k in ("energy", "work", "exec_time", "n_steps"):
         check(np.array_equal(getattr(sub, k), getattr(res, k)[rows]),
@@ -2032,21 +2139,16 @@ def paper_workflow(dev, main_grid, main_kw, kernel_means, smi) -> None:
                              else full[rows]),
               f"scan sub-grid summary {k} != the full grid's rows")
     print(f"[paper] scan sub-grid of {len(SUB_SEEDS)} seeds x 33 (profile,"
-          f" eps) = {len(SUB_SEEDS) * 33} runs: bit-equal to the full "
-          f"grid's rows ({sub_wall:.3f} s wall)")
+          f" eps) = {len(SUB_SEEDS) * 33} runs at {PROFILE_STEPS} steps: "
+          f"bit-equal to the profiled full grid's rows ({sub_wall:.3f} s "
+          f"wall)")
     del res, sub
-    t0 = time.perf_counter()
-    short = dict(main_kw, max_time=float(PROFILE_STEPS))
-    prof = device_breakdown(
-        lambda: sim.sweep(*main_grid, **short, backend="scan"),
-        f"scan sweep, {n_runs} runs x {PROFILE_STEPS} steps",
-        host_ops=False)
     if prof is not None:
         print(f"[paper] scan engine: {prof['launches'] / PROFILE_STEPS:.1f} "
               f"device launches per step ({prof['launches']} in "
               f"{PROFILE_STEPS} steps, set-up included), device idle "
               f"{100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}% of the "
-              f"profiled wall ({time.perf_counter() - t0:.1f} s with the "
+              f"profiled wall ({t1 - t0:.1f} s with the "
               f"profiler's own work)")
 
     # ---- Fig. 7 at full size, on both engines -----------------------------
@@ -2188,10 +2290,17 @@ def policies_phase(dev, main_grid, main_kw, main_out, main_summary,
           f"time by lambda: " + ", ".join(
               f"{lam} {t:.2f} s" for lam, t in zip(LAMS, per_lam))
           + f"; best lambda {LAMS[best]} ({per_lam[best]:.2f} s)")
+    del res
     t0 = time.perf_counter()
+    steps = PROFILE_STEPS
+    short = dict(LAM_KW, max_time=float(steps))
+    res, prof = profiled(
+        lambda: sim.sweep(*LAM_GRID, adaptive=cfgs, **short),
+        f"lambda grid, {n_runs} runs x {steps} steps")
+    t1 = time.perf_counter()
     sub = sim.sweep(LAM_GRID[0], LAM_GRID[1], LAM_SUB, adaptive=cfgs,
-                    **LAM_KW)
-    sub_wall = time.perf_counter() - t0
+                    **short)
+    sub_wall = time.perf_counter() - t1
     for k in ("energy", "work", "exec_time", "n_steps"):
         check(np.array_equal(getattr(sub, k), getattr(res, k)[..., LAM_SUB]),
               f"lambda sub-grid {k} != the full grid's rows")
@@ -2203,21 +2312,15 @@ def policies_phase(dev, main_grid, main_kw, main_out, main_summary,
                              else full[..., LAM_SUB]),
               f"lambda sub-grid summary {k} != the full grid's rows")
     print(f"[policy] lambda sub-grid of {len(LAM_SUB)} seeds x 100 = "
-          f"{sub.exec_time.size} runs: bit-equal to the full grid's rows "
-          f"({sub_wall:.3f} s wall)")
+          f"{sub.exec_time.size} runs at {steps} steps: bit-equal to the "
+          f"profiled full grid's rows ({sub_wall:.3f} s wall)")
     del res, sub
-    t0 = time.perf_counter()
-    steps = PROFILE_STEPS
-    prof = device_breakdown(
-        lambda: sim.sweep(*LAM_GRID, adaptive=cfgs,
-                          **dict(LAM_KW, max_time=float(steps))),
-        f"lambda grid, {n_runs} runs x {steps} steps", host_ops=False)
     if prof is not None:
         print(f"[policy] lambda grid (pi_rls): {prof['launches'] / steps:.1f}"
               f" device launches per step ({prof['launches']} in {steps} "
               f"steps, set-up included), device idle "
               f"{100 - 100 * prof['busy_us'] / prof['wall_us']:.1f}% of the "
-              f"profiled wall ({time.perf_counter() - t0:.1f} s with the "
+              f"profiled wall ({t1 - t0:.1f} s with the "
               f"profiler's own work)")
 
     # ---- d. the policy face-off (policy_faceoff.py, --full) --------------
@@ -2266,7 +2369,7 @@ def policies_phase(dev, main_grid, main_kw, main_out, main_summary,
     # the PI lane of a mixed trace sweep against a pure packed-PI sweep,
     # and duty-cycle's caps at eps 0.3
     t0 = time.perf_counter()
-    kw = dict(RACE_KW, collect_traces=True)
+    kw = dict(RACE_KW, collect_traces=True, max_time=LANE_TIME)
     mixed = sim.sweep(RACE_PROFS, [RACE_EPS, 0.3], range(8), **kw,
                       policies=[PIPolicy(), DutyCyclePolicy()])
     pure = sim.sweep(RACE_PROFS, [RACE_EPS, 0.3], range(8), **kw,
@@ -2327,10 +2430,11 @@ BIG_SEEDS, BIG_CHUNK = 30720, 131072
 BIG_SUB = list(range(0, BIG_SEEDS, 320)) + [BIG_SEEDS - 1]
 BIG_PEAK_X = 1.3
 CHUNK_SEEDS = 3972
-# (c) the scan engine chunked: 4,096 runs at the paper's horizon (2,048
-# steps) in 2 chunks
+# (c) the scan engine chunked: 4,096 runs in 2 chunks, at 512 steps (the
+# engine's cost is its step loop, ~4 ms a step whatever the batch: the
+# paper's 2,048 steps took 25 s for the two sweeps on an H100's host)
 SCAN_RT = (("gros", "dahu"), (0.1, 0.2), range(1024))
-SCAN_CHUNK = 2048
+SCAN_CHUNK, SCAN_RT_STEPS = 2048, 512
 # (d) the spawned campaign kills itself after this many commits
 KILL_AFTER = 3
 # (e) run_simulated at eps 0.0 and 0.1 over 8 seeds, the reference
@@ -2338,7 +2442,10 @@ KILL_AFTER = 3
 # engine's smallest bucket (256 steps), room for 1,500 units of work at
 # ~22 Hz
 NRM_SEEDS, NRM_MT, NRM_WORK = range(8), 256.0, 1500.0
-CTRL_PERIODS = 500
+# (e) control_step's median over this many periods (a card period with
+# the plant's advance and the beats took 17 ms of host time on an H100's
+# host, 500 of them 8.5 s)
+CTRL_PERIODS = 200
 
 
 def _same_runs(res, main_out, main_summary, what):
@@ -2439,9 +2546,10 @@ def runtime_phase(dev, main_grid, main_kw, main_out, main_summary, serve7,
     del res, sub
 
     # ---- c. the scan engine chunked --------------------------------------
-    one, w_one, p_one, _ = timed_sweep(*SCAN_RT, backend="scan", **main_kw)
+    scan_kw = dict(main_kw, max_time=float(SCAN_RT_STEPS))
+    one, w_one, p_one, _ = timed_sweep(*SCAN_RT, backend="scan", **scan_kw)
     ch, w_ch, p_ch, routes = timed_sweep(*SCAN_RT, backend="scan",
-                                         chunk_size=SCAN_CHUNK, **main_kw)
+                                         chunk_size=SCAN_CHUNK, **scan_kw)
     check(routes == {"seeds": 0, "noise": 0}, "scan engine launched the "
           "closed-loop kernel")
     for k in ("progress_mean", "power_mean", "progress_hist", "pcap_hist"):
@@ -2449,7 +2557,8 @@ def runtime_phase(dev, main_grid, main_kw, main_out, main_summary, serve7,
               f"scan engine chunked {k} != one-shot")
     check(np.array_equal(one.energy, ch.energy), "scan chunked energy")
     n_scan = int(np.prod(one.energy.shape))
-    print(f"[runtime] c. scan engine, {n_scan} runs x 2048: one-shot "
+    print(f"[runtime] c. scan engine, {n_scan} runs x {SCAN_RT_STEPS}: "
+          f"one-shot "
           f"{w_one:.2f} s (peak {p_one:.3f} GiB), {n_scan // SCAN_CHUNK} "
           f"chunks of {SCAN_CHUNK} {w_ch:.2f} s (peak {p_ch:.3f} GiB; every "
           f"chunk runs every step, so the wall is ~{n_scan // SCAN_CHUNK}x "
@@ -3089,7 +3198,8 @@ TRAIN_LR = 3e-5
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GNORM_REL_TOL = LOGITS_REL_TOL
 # (c) starcoder2-3b widths x 2 layers in float32 at batch 2 x 2,048: the
-# SIMT flash kernel against the plain path, summation order only
+# split-TF32 flash kernels against the plain path (summation order and the
+# split's ~22 bits)
 F32_LOSS_RTOL, F32_GRAD_REL = 1e-5, 1e-4
 # (d) train --power at full width: 12 steps, a control period shorter
 # than a step's simulated time, so that the NRM acts every step
@@ -3197,19 +3307,19 @@ def train_breakdown(fn, label: str):
         return None
 
 
-def _bwd_bound(case):
+def _bwd_bound(case, rate):
     """(bound ms, bound by, flops, bytes) of the flash backward at a
     FLASH_CASES-style case: the five products per visible (query, key)
     pair that dq, dk and dv need (S, dP, dV, dK, dQ; causal: S (S + 1) /
-    2 pairs a head) at the bf16 tensor rate or, for float32, the rate
-    outside the tensor cores; its bytes q, k, v, o, dO and lse read once
-    and dq, dk, dv written once."""
+    2 pairs a head) at ``rate`` flop/s (the bf16 tensor rate; for float32
+    the TF32 rate over the split's three products, or the rate outside
+    the tensor cores); its bytes q, k, v, o, dO and lse read once and dq,
+    dk, dv written once."""
     B, S, H, K, hd, causal, window, dtype = case
     pairs = S * (S + 1) / 2 if causal else S * S
     flops = 5 * 2 * B * H * hd * pairs
     size = 2 if dtype == "bfloat16" else 4
     n_bytes = (4 * B * S * H * hd + 4 * B * S * K * hd) * size + B * H * S * 4
-    rate = BF16_PER_S if dtype == "bfloat16" else FP32_PER_S
     ops_ms, bytes_ms = flops / rate * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", flops, n_bytes)
@@ -3275,9 +3385,11 @@ def flash_op_phase(dev) -> dict:
               f"flash op {case}: backward calls "
               f"{FK.BWD_LAUNCHES - bwd_before}, plain calls {plain[0]}")
         errs, floors, bars = AC.bwd_readings(q, k, v, g, got)
-        mid = S // 2 // FK.BWD_TILE * FK.BWD_TILE
+        # one key tile of the route's dK / dV blocks lost
+        tile = FK.BWD_TILE if dtype == "bfloat16" else FK.BWD_TF32_TILE
+        mid = S // 2 // tile * tile
         broken, _, _ = AC.bwd_readings(q, k, v, g, AC.drop_key_tile(
-            got, slice(mid, mid + FK.BWD_TILE)))
+            got, slice(mid, mid + tile)))
         want = AC.plain_route_grads(*(x.float() for x in (q, k, v)),
                                     g.float())
         max_abs = max(float((a.float() - b).abs().max())
@@ -3300,7 +3412,7 @@ def flash_op_phase(dev) -> dict:
                                               f" (bar {b:.0e})")
                           for n, e, f, b in zip("qkv", errs, floors or
                                                 [None] * 3, bars))
-              + f"; a backward losing keys {mid}-{mid + FK.BWD_TILE - 1}'s "
+              + f"; a backward losing keys {mid}-{mid + tile - 1}'s "
               f"dK / dV reads dk {broken[1]:.3e}, dv {broken[2]:.3e}")
 
         # time: the kernels and SDPA's backward in turns, the plain
@@ -3326,7 +3438,10 @@ def flash_op_phase(dev) -> dict:
             q, k, v, o_k, lse, g), **reps)
         recompute_ms = device_ms(lambda: AC.plain_route_grads(q, k, v, g),
                                  **reps)
-        bound, bound_by, flops, n_bytes = _bwd_bound(case)
+        rate = (BF16_PER_S if dtype == "bfloat16"
+                else TF32_PER_S / TF32_SPLIT)
+        bound, bound_by, flops, n_bytes = _bwd_bound(case, rate)
+        ffma = _bwd_bound(case, FP32_PER_S)[0]
         # the layout the model hands the kernel under head-TP: K/V
         # repeated to every head (G = 1)
         kr, vr = (x.repeat_interleave(H // K, dim=2).contiguous()
@@ -3334,10 +3449,16 @@ def flash_op_phase(dev) -> dict:
         g1_ms = device_ms(lambda: FK.flash_attention_bwd_cuda(
             q, kr, vr, o_k, lse, g), **reps)
         del kr, vr
-        rate = "bf16 tensor" if dtype == "bfloat16" else "float32 CUDA-core"
-        seven_ms = flops * 7 / 5 / (BF16_PER_S if dtype == "bfloat16"
-                                    else FP32_PER_S) * 1e3
-        print(f"[train] flash backward {case}: {bwd_ms:.4f} ms a layer on "
+        rate_name = ("bf16 tensor" if dtype == "bfloat16"
+                     else "TF32 tensor (three products a product)")
+        seven_ms = flops * 7 / 5 / rate * 1e3
+        route = FK.bwd_route(q.dtype, hd)
+        ffma_note = ("" if dtype == "bfloat16" else
+                     f"; an FMA kernel's floor {ffma:.4f} ms (the float32 "
+                     f"rate outside the tensor cores), "
+                     f"{100 * ffma / bwd_ms:.1f}% of it")
+        print(f"[train] flash backward {case} ({route} route), in turns "
+              f"with SDPA's: {bwd_ms:.4f} ms a layer on "
               f"the card (" + ", ".join(f"{n} {t:.4f} ms"
                                          for n, t in launches.items())
               + f"); with K/V repeated to every head (G = 1) "
@@ -3346,13 +3467,14 @@ def flash_op_phase(dev) -> dict:
               f"(attention_bwd_ref) {plain_ms:.3f} ms; the plain "
               f"route's autograd {recompute_ms:.3f} ms; bound "
               f"{bound:.4f} ms by {bound_by} ({flops:.4g} flop, five "
-              f"products, at the {rate} rate; {n_bytes / 1e6:.1f} MB; the "
-              f"seven products this design does {seven_ms:.4f} ms), "
+              f"products, at the {rate_name} rate; {n_bytes / 1e6:.1f} MB; "
+              f"the seven products this design does {seven_ms:.4f} ms), "
               f"{100 * bound / bwd_ms:.1f}% of it, "
-              f"{flops / bwd_ms / 1e9:.1f} TFLOP/s")
+              f"{flops / bwd_ms / 1e9:.1f} TFLOP/s" + ffma_note)
         out[dtype] = {"bwd_ms": bwd_ms, "lib_bwd_ms": lib_ms,
                       "plain_ms": plain_ms, "recompute_ms": recompute_ms,
                       "bound_ms": bound, "bound_by": bound_by,
+                      "ffma_bound_ms": ffma, "route": route,
                       "max_abs_err": max_abs, "fwd_err": err}
         del qkv, q, k, v, o, o_ref, got, qt, ot, gt, o_k, lse, g
         torch.cuda.empty_cache()
@@ -3361,7 +3483,7 @@ def flash_op_phase(dev) -> dict:
 
 def train_f32_cut(dev) -> None:
     """Phase 16 (c): starcoder2-3b widths x 2 layers in float32, the loss
-    and every grad leaf of the kernel path (the SIMT flash kernel)
+    and every grad leaf of the kernel path (the split-TF32 flash kernels)
     against the plain path; flash launches a loss + backward by remat."""
     import dataclasses
 
@@ -3382,13 +3504,15 @@ def train_f32_cut(dev) -> None:
     res, launches, bwd = {}, {}, {}
     for impl in ("cuda", "blocked"):
         FK.LAUNCHES = FK.BWD_LAUNCHES = 0
-        FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
-        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        FK.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
+        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
         res[impl] = value_and_grads(cfg, ApplyOptions(attn_impl=impl),
                                     params, batch)
         launches[impl], bwd[impl] = FK.LAUNCHES, FK.BWD_LAUNCHES
-        check(impl != "cuda" or (FK.ROUTE_LAUNCHES["simt"] == 4
-                                 and FK.BWD_ROUTE_LAUNCHES["simt"] == 2),
+        check(impl != "cuda" or (
+            FK.ROUTE_LAUNCHES == {"wgmma": 0, "tf32x3": 4, "simt": 0}
+            and FK.BWD_ROUTE_LAUNCHES == {"wgmma": 0, "tf32x3": 2,
+                                          "simt": 0}),
               f"float32 flash routes {FK.ROUTE_LAUNCHES}, backward "
               f"{FK.BWD_ROUTE_LAUNCHES}")
     for remat in ("none", "dots"):
@@ -3416,7 +3540,8 @@ def train_f32_cut(dev) -> None:
           f"(bar {F32_GRAD_REL}); flash launches a loss + backward: "
           f"remat full {launches['cuda']}, dots {launches['dots']}, none "
           f"{launches['none']} (forward + recompute a layer, or forward "
-          f"only); backward kernel calls (SIMT route) full {bwd['cuda']}, "
+          f"only); backward kernel calls (split-TF32 route) full "
+          f"{bwd['cuda']}, "
           f"dots {bwd['dots']}, none {bwd['none']}, no plain recompute "
           f"({time.perf_counter() - t0:.1f} s)")
     del params, res
@@ -3500,8 +3625,8 @@ def _train_full_width(dev, smi, mesh) -> dict:
     for i in range(TRAIN_STEPS):
         batch = next(it)
         FK.LAUNCHES = FK.BWD_LAUNCHES = 0
-        FK.ROUTE_LAUNCHES.update(wgmma=0, simt=0)
-        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        FK.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
+        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
         with annotated_train_step() as calls, \
                 counting_plain_calls() as plain:
             if i == TRAIN_STEPS - 1:
@@ -3522,10 +3647,11 @@ def _train_full_width(dev, smi, mesh) -> dict:
         bwd_calls.append(calls[0])
         bwd_kernel.append(FK.BWD_LAUNCHES)
         plain_calls.append(plain[0])
-        check(FK.ROUTE_LAUNCHES == {"wgmma": FK.LAUNCHES, "simt": 0},
+        check(FK.ROUTE_LAUNCHES == {"wgmma": FK.LAUNCHES, "tf32x3": 0,
+                                    "simt": 0},
               f"training flash routes {FK.ROUTE_LAUNCHES}")
         check(FK.BWD_ROUTE_LAUNCHES == {"wgmma": FK.BWD_LAUNCHES,
-                                        "simt": 0},
+                                        "tf32x3": 0, "simt": 0},
               f"training flash backward routes {FK.BWD_ROUTE_LAUNCHES}")
         check(np.isfinite(losses[-1]) and np.isfinite(float(
             m["grad_norm"])), f"step {i + 1}: loss or grad norm not finite")
@@ -3771,7 +3897,7 @@ def train_phase(dev, smi) -> dict:
     xlstm_phase(dev)                          # (f)
     torch.cuda.empty_cache()
     print(f"[train] phase 16 in {time.perf_counter() - t0:.1f} s")
-    b = op["bfloat16"]
+    b, f = op["bfloat16"], op["float32"]
     bwd_row = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3782,7 +3908,11 @@ def train_phase(dev, smi) -> dict:
         "calls_per_step": full["bwd_calls"], "max_abs_err": b["max_abs_err"],
         "ms": b["bwd_ms"], "plain_ms": b["plain_ms"],
         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-        "library_ms": b["lib_bwd_ms"]}
+        "library_ms": b["lib_bwd_ms"], "float32_route": f["route"],
+        "float32_ms": f["bwd_ms"], "float32_library_ms": f["lib_bwd_ms"],
+        "float32_bound_ms": f["bound_ms"],
+        "float32_ffma_bound_ms": f["ffma_bound_ms"],
+        "float32_max_abs_err": f["max_abs_err"]}
     return {"train_launches_per_step": full["launches"]}, bwd_row
 
 
@@ -3942,12 +4072,13 @@ EX_CAP_RTOL = 1e-4       # the quickstart's cap trajectory
 EX_TAU_RTOL = 1e-5
 EX_ERR_RTOL = 1e-3       # the adaptive demo's tracking error
 # the adaptive demo's NRM runs on the scan engine, whose cost is its step
-# bucket whatever the work: the card runs the example's own max_time
-# 3,600 s (4,096 steps, ~4 ms a step), its CPU copy 256 s (256 steps).
-# Every run completes within 62 s; on the CPU the two buckets give the
-# same numbers bit for bit
+# bucket whatever the work: the example's own max_time 3,600 s is 4,096
+# steps (~5 ms a step on an H100's host, 40-46 s for the demo's two runs),
+# so the card and its CPU copy both run it at 256 s (256 steps). Every
+# run completes within 62 s, and the two buckets give the same numbers bit
+# for bit
 # (`tests/test_torch_examples.py::test_adaptive_cut_changes_no_number`)
-EX_ADAPT_CPU_MAX_TIME = 256.0
+EX_ADAPT_MAX_TIME = 256.0
 # the serve example's logits, kernel path against the kernels' plain
 # versions and the model's plain path on its weights and tokens: float32
 # (`--reduced`), so the paths differ in summation order only (phase 10's
@@ -3968,6 +4099,7 @@ def _ex_counts() -> dict:
     return {"closed_loop_seeds": K.ROUTE_LAUNCHES["seeds"],
             "closed_loop_tensor": K.ROUTE_LAUNCHES["noise"],
             "flash_wgmma": FK.ROUTE_LAUNCHES["wgmma"],
+            "flash_tf32x3": FK.ROUTE_LAUNCHES["tf32x3"],
             "flash_simt": FK.ROUTE_LAUNCHES["simt"],
             "decode": DK.LAUNCHES, "scan": SK.LAUNCHES}
 
@@ -4095,7 +4227,7 @@ def examples_phase(dev, smi) -> None:
     with _ex_counted("identify_and_control", ls):
         sw = ic.eps_sweep(device=dev)
     with _ex_counted("identify_and_control", la):
-        ad = ic.adaptive_demo(dev)
+        ad = ic.adaptive_demo(dev, max_time=EX_ADAPT_MAX_TIME)
     with _ex_counted("identify_and_control", lf):
         fl = ic.fleet_demo(dev)
     check(ls["closed_loop_seeds"] >= 1 and ls["closed_loop_tensor"] == 0,
@@ -4107,7 +4239,7 @@ def examples_phase(dev, smi) -> None:
         for name in ic.CLUSTERS:
             ident_cpu[name] = ic.identify(name, noise)
         sw_cpu = ic.eps_sweep(device="cpu")
-        ad_cpu = ic.adaptive_demo("cpu", max_time=EX_ADAPT_CPU_MAX_TIME)
+        ad_cpu = ic.adaptive_demo("cpu", max_time=EX_ADAPT_MAX_TIME)
         fl_cpu = ic.fleet_demo("cpu")
     cpu_wall = time.perf_counter() - t0
     d = {}
@@ -4138,7 +4270,7 @@ def examples_phase(dev, smi) -> None:
     check(d["adaptive_error"] <= EX_ERR_RTOL
           and d["adaptive_time_abs"] <= 1.0,
           f"adaptive_demo card against CPU: {ad} vs {ad_cpu}")
-    check(max(ad_cpu[a]["time"] for a in ad) < EX_ADAPT_CPU_MAX_TIME,
+    check(max(ad_cpu[a]["time"] for a in ad) < EX_ADAPT_MAX_TIME,
           f"adaptive_demo: a CPU run did not complete {ad_cpu}")
     d["fleet"] = max(_ex_rel(fl[k], fl_cpu[k]) for k in fl)
     check(d["fleet"] <= EX_MEAN_RTOL, f"fleet_demo card against CPU: "
@@ -4148,9 +4280,9 @@ def examples_phase(dev, smi) -> None:
     print(f"[examples] identify_and_control: card "
           f"{walls['identify_and_control']:.2f} s (identify "
           f"{li['wall_s']:.2f}, eps_sweep {ls['wall_s']:.2f}, "
-          f"adaptive_demo {la['wall_s']:.2f} at max_time 3600 s, fleet_demo "
-          f"{lf['wall_s']:.2f}), CPU {cpu_wall:.2f} s (adaptive_demo at "
-          f"max_time {EX_ADAPT_CPU_MAX_TIME:.0f} s); launches: identify "
+          f"adaptive_demo {la['wall_s']:.2f} at max_time "
+          f"{EX_ADAPT_MAX_TIME:.0f} s, fleet_demo {lf['wall_s']:.2f}), CPU "
+          f"{cpu_wall:.2f} s; launches: identify "
           f"{_ex_launch_line(li)}; "
           f"eps_sweep {_ex_launch_line(ls)}; adaptive_demo "
           f"{_ex_launch_line(la)}; fleet_demo {_ex_launch_line(lf)}; card "
@@ -4250,6 +4382,10 @@ def main() -> int:
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
 
+    def lap(phase: int) -> None:
+        print(f"[wall] phase {phase} done {time.perf_counter() - started:.1f}"
+              f" s after the start")
+
     # ---- 1. set-up ---------------------------------------------------
     print(f"[setup] nvidia-smi: {smi}")
     print(f"[setup] python {sys.version.split()[0]}, torch "
@@ -4262,14 +4398,20 @@ def main() -> int:
     lib, *other_libs = _build.build_all([K.SOURCE, FK.SOURCE,
                                          FK.WGMMA_SOURCE, FK.BWD_SOURCE,
                                          FK.BWD_WGMMA_SOURCE, DK.SOURCE,
-                                         SK.SOURCE])
-    _, wgmma_lib, _, bwd_lib, decode_lib, scan_lib = other_libs
+                                         SK.SOURCE, FK.TF32_SOURCE,
+                                         FK.BWD_TF32_SOURCE])
+    (_, wgmma_lib, _, bwd_lib, decode_lib, scan_lib, tf32_lib,
+     bwd_tf32_lib) = other_libs
     print(f"[setup] built {lib.relative_to(ROOT)}, "
           + ", ".join(str(x.relative_to(ROOT)) for x in other_libs)
           + f" in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
           f"parallel)")
-    hopper_paths(wgmma_lib, bwd_lib, decode_lib)
+    t0 = time.perf_counter()
+    hopper_paths(wgmma_lib, bwd_lib, decode_lib, tf32_lib, bwd_tf32_lib)
     loop_instr = closed_loop_sass(lib, dev)
+    print(f"[setup] SASS read and the cosine checked in "
+          f"{time.perf_counter() - t0:.2f} s; set-up done "
+          f"{time.perf_counter() - started:.1f} s after the start")
 
     # count the plain version's and the noise draw's calls too: the main
     # path must make none
@@ -4335,6 +4477,7 @@ def main() -> int:
           f"= {max_err:.3e}; runs bit-equal between the routes "
           f"{same_runs}/{all_runs} ({100 * same_runs / all_runs:.2f}%) "
           f"({time.perf_counter() - t0:.1f} s)")
+    lap(2)
 
     # ---- 3. the main path at real size -------------------------------
     main_kw = dict(total_work=1e9, max_time=2048.0, dt=1.0,
@@ -4397,6 +4540,7 @@ def main() -> int:
     del res
     device_breakdown(lambda: sim.sweep(*main_grid, **main_kw),
                      "sweep, 101,376 runs x 2,048 steps, seeds route")
+    lap(3)
 
     # ---- 4. the paper's headline through sweep and simulate ----------
     K.LAUNCHES, plain_calls[0], draw_calls[0] = 0, 0, 0
@@ -4427,6 +4571,7 @@ def main() -> int:
           f"{table[0.1]['energy_saving']:.4f}, time increase "
           f"{table[0.1]['time_increase']:.4f} (30 seeds, total_work 6000); "
           f"kernel launches by route {K.ROUTE_LAUNCHES}")
+    lap(4)
 
     # ---- 5. the main path's own inputs: parity, then timings --------
     prof, gains, seeds = sim.grid_rows(*main_grid)
@@ -4470,10 +4615,11 @@ def main() -> int:
     f1, t1, t2, f2 = (cuda_ms(f) for f in (fused, tensor, tensor, fused))
     kern_ms, tensor_ms = (f1 + f2) / 2, (t1 + t2) / 2
     # the plain version of the seeds route: draw_noise, then the plain
-    # closed loop on the card (the parity run above was its warm-up)
+    # closed loop on the card (the parity run above was its warm-up), once:
+    # it takes seconds
     plain_ms = cuda_ms(lambda: R.closed_loop_ref(
         prof, gains, ops.draw_noise(seeds, 2048), *main_sc, collect=False),
-        reps=3, warmup=0)
+        reps=1, warmup=0)
     rows_bytes = (prof.numel() + gains.numel()) * 4
     out_bytes = (K.N_STATE + R.PROG_BINS + R.CAP_BINS) * n_runs * 4
     bound_ms, bound_by, how = bound(
@@ -4540,33 +4686,47 @@ def main() -> int:
 
     del big_noise, prof, gains, seeds, big_prof, big_gains, big_seeds
     torch.cuda.empty_cache()
+    lap(5)
 
     attn_err = attention_parity(dev)                      # phase 6
+    lap(6)
     serving = serving_path(dev)                           # phase 7
+    lap(7)
     attn_rows = attention_timings(dev, serving, attn_err)  # phase 8
+    lap(8)
     serve7 = serving[3]
     del serving  # qwen3-8b's weights: free them before jamba's
     torch.cuda.empty_cache()
     scan_err = scan_parity(dev, scan_lib)                 # phase 9
+    lap(9)
     scan_row = jamba_serving(dev, scan_err)               # phase 10
     torch.cuda.empty_cache()
+    lap(10)
     paper_workflow(dev, main_grid, main_kw, kernel_means, smi)  # phase 11
+    lap(11)
     policies_phase(dev, main_grid, main_kw, main_out, main_summary,
                    smi)                                   # phase 12
+    lap(12)
     scenarios_phase(dev, main_grid, main_kw, smi)         # phase 13
+    lap(13)
     serve14 = runtime_phase(dev, main_grid, main_kw, main_out,
                             main_summary, serve7, smi)    # phase 14
+    lap(14)
     dry = start_dryrun()                                  # phase 17's children
     try:
         fleet_plane_phase(dev, serve7, serve14, smi)      # phase 15
+        lap(15)
         flash_train, bwd_row = train_phase(dev, smi)      # phase 16
+        lap(16)
         attn_rows[0].update(flash_train)
         attn_rows.insert(1, bwd_row)
     except BaseException:
         stop_dryrun(dry)
         raise
     dryrun_phase(smi, dry)                                # phase 17
+    lap(17)
     examples_phase(dev, smi)                              # phase 18
+    lap(18)
 
     # `host_mesh` destroyed the one-rank group each entry point started:
     # no group outlives its run

@@ -32,14 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # and the selective scan keep it and fuse only where they say so, by
 # explicit fmaf (the flash dot products; the scan's state update and its
 # sum over the states), which the flag leaves alone. The sources named in
-# `CONTRACTING` are built without it: the tensor-core flash kernel, the
-# flash backward (both sources: it sums in its own order, tiles and head
-# groups, and is held to its plain version at a tolerance, float32 at 1e-4
-# of the largest grad) and the decode kernel sum in their own order and are
-# held to their plain versions at a tolerance.
+# `CONTRACTING` are built without it: the tensor-core flash kernels (bf16
+# and split TF32), the flash backward (every source: it sums in its own
+# order, tiles and head groups, and is held to its plain version at a
+# tolerance, float32 at 1e-4 of the largest grad) and the decode kernel sum
+# in their own order and are held to their plain versions at a tolerance.
 EXACT_FLAGS = ("-fmad=false",)
 CONTRACTING = frozenset({"flash_attention_wgmma.cu", "flash_attention_bwd.cu",
                          "flash_attention_bwd_wgmma.cu",
+                         "flash_attention_tf32.cu",
+                         "flash_attention_bwd_tf32.cu",
                          "decode_attention.cu"})
 
 

@@ -2,9 +2,10 @@
 versions on the card, the inputs for them, and the bar.
 
 Used by `tests/test_torch_cuda.py` and `chip_smoke.py`. The cases are
-`tests/test_kernels.py`'s, plus head_dim 120 (h2o-danube-3-4b), ragged
-lengths, a sliding window narrower than a KV tile (rows whose first
-visited tile is fully masked), the qwen3-8b serving shapes, the
+`tests/test_kernels.py`'s, plus head_dim 120 (h2o-danube-3-4b), head_dim
+20 (the SIMT route's, in both dtypes), ragged lengths, a sliding window
+narrower than a KV tile (rows whose first visited tile is fully masked),
+the qwen3-8b serving shapes, the
 starcoder2-3b training shape and the decode shapes of the serve example
 (`repro_torch.examples.serve_batched`, head_dim 16).
 
@@ -56,6 +57,9 @@ FLASH_CASES = [
     (2, 512, 32, 8, 120, True, 4096, "bfloat16"),  # danube widths
     (1, 256, 4, 2, 64, True, 8, "bfloat16"),     # window < a tile, bf16
     (1, 300, 4, 2, 120, True, 100, "bfloat16"),  # ragged, hd 120, bf16
+    # hd 20, not a multiple of 8: the SIMT kernels (`kernel.route`)
+    (1, 128, 4, 2, 20, True, None, "float32"),
+    (1, 128, 4, 2, 20, True, None, "bfloat16"),
 ]
 # qwen3-8b prefill, batch 8 x 1,024 tokens, per layer
 FLASH_SERVE = (8, 1024, 32, 8, 128, True, None, "bfloat16")

@@ -1,13 +1,14 @@
 """Wrappers of the flash-attention CUDA kernels. The forward: the Hopper
 counterparts of the TPU kernel `_fwd_kernel` / `flash_attention_fwd` in
 `repro.kernels.flash_attention.kernel`, ``csrc/flash_attention_wgmma.cu``
-(tensor cores: wgmma fed by TMA, bf16) and ``csrc/flash_attention.cu``
-(SIMT float32 FMAs, float32 and any other shape), which also write the
-rows' log-sum-exp when given an ``lse`` tensor. The backward (D, dK /
+(tensor cores: wgmma fed by TMA, bf16), ``csrc/flash_attention_tf32.cu``
+(tensor cores in split TF32, float32) and ``csrc/flash_attention.cu``
+(SIMT FMAs, a head_dim that is not a multiple of 8), which also write
+the rows' log-sum-exp when given an ``lse`` tensor. The backward (D, dK /
 dV and dQ, three launches a call), the port of the reference's recompute
-VJP `_flash_bwd`: ``csrc/flash_attention_bwd_wgmma.cu`` (tensor cores:
-wgmma fed by TMA, bf16) and ``csrc/flash_attention_bwd.cu`` (SIMT float32
-FMAs otherwise).
+VJP `_flash_bwd`: ``csrc/flash_attention_bwd_wgmma.cu`` (bf16),
+``csrc/flash_attention_bwd_tf32.cu`` (float32, split TF32) and
+``csrc/flash_attention_bwd.cu`` (SIMT FMAs) on the same routes.
 
 `route` and `bwd_route` pick the kernels from the dtype and head_dim
 alone: a static rule, not a fallback. `flash_attention_cuda` and
@@ -31,20 +32,24 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 WGMMA_SOURCE = SOURCE.with_name("flash_attention_wgmma.cu")
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 BWD_WGMMA_SOURCE = SOURCE.with_name("flash_attention_bwd_wgmma.cu")
+TF32_SOURCE = SOURCE.with_name("flash_attention_tf32.cu")
+BWD_TF32_SOURCE = SOURCE.with_name("flash_attention_bwd_tf32.cu")
 
 # the kernels' head_dim limit (their widest tile)
 MAX_HEAD_DIM = 128
 
-# Launches of either kernel in this process, and of each route; read and
-# reset by callers that need to show a run went through them.
+# Launches of the forward kernels in this process, and of each route; read
+# and reset by callers that need to show a run went through them.
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0, "simt": 0}
 # Calls of the backward (three kernel launches each), and of each route.
 BWD_LAUNCHES = 0
-BWD_ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0, "simt": 0}
 
-# the keys a block of the tensor-core backward's dK / dV kernel owns
+# the keys a block of the tensor-core backward's dK / dV kernel owns, on
+# the bf16 route and on the split-TF32 one
 BWD_TILE = 128
+BWD_TF32_TILE = 64
 # its rows of -lse log2(e) and D are padded to a multiple of this
 BWD_ROW_PAD = 64
 
@@ -57,22 +62,28 @@ _i = ctypes.c_int
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
-    """The kernel a call takes: "wgmma" (tensor cores) for bfloat16 with
-    head_dim a multiple of 8 up to 128 (64, 96, 120 and 128: every arch),
-    else "simt". float32 stays on the SIMT kernel, whose float32 FMAs hold
-    the 2e-5 bar that TF32 tensor cores would not."""
-    if dtype == torch.bfloat16 and hd % 8 == 0 and 8 <= hd <= MAX_HEAD_DIM:
-        return "wgmma"
+    """The kernel a call takes, for head_dim a multiple of 8 up to 128
+    (every arch's: 16 to 128): "wgmma" (tensor cores) for bfloat16,
+    "tf32x3" (tensor cores in split TF32: three TF32 products per float32
+    product, which hold the 2e-5 bar that one TF32 product would not) for
+    float32; "simt" (FMAs outside the tensor cores) for any other head_dim
+    or dtype."""
+    if hd % 8 == 0 and 8 <= hd <= MAX_HEAD_DIM:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "simt"
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The backward's kernels: "wgmma" (wgmma fed by TMA on the tensor
-    cores) where the forward takes it, else "simt" (float32 FMAs)."""
+    """The backward's kernels: those of the forward's route, "wgmma",
+    "tf32x3" (both wgmma fed by TMA) or "simt"."""
     return route(dtype, hd)
 
 
-def g_split(B: int, K: int, T: int, G: int, n_sm: int) -> int:
+def g_split(B: int, K: int, T: int, G: int, n_sm: int,
+            tile: int = BWD_TILE) -> int:
     """How many groups the dK / dV kernel splits each KV head's G query
     heads into: the smallest divisor of G that gives the card one wave of
     its blocks (one resident a multiprocessor), else G. Each group's
@@ -83,8 +94,9 @@ def g_split(B: int, K: int, T: int, G: int, n_sm: int) -> int:
     split at the three large ones (starcoder2-3b's training shape: 2 of G
     = 12; at batch 1: 6; qwen3-8b's widths: none) and is on average the
     nearest to the fastest; on the 4- to 6-block `FLASH_CASES` no split
-    is fastest."""
-    blocks = B * K * -(-T // BWD_TILE)
+    is fastest. ``tile`` is the keys a block owns (`BWD_TF32_TILE` on the
+    split-TF32 route)."""
+    blocks = B * K * -(-T // tile)
     for d in range(1, G + 1):
         if G % d == 0 and blocks * d >= n_sm:
             return d
@@ -92,13 +104,19 @@ def g_split(B: int, K: int, T: int, G: int, n_sm: int) -> int:
 
 
 def _fn(path: str):
-    """The C launch function of a route's library, typed."""
-    if path == "wgmma":
-        fn = _build.load(WGMMA_SOURCE).flash_attention_wgmma_launch
+    """The C launch function of a route's library, typed. The tensor-core
+    routes of a direction share one signature."""
+    if path in ("wgmma", "tf32x3"):
+        lib = _build.load(WGMMA_SOURCE if path == "wgmma" else TF32_SOURCE)
+        fn = (lib.flash_attention_wgmma_launch if path == "wgmma"
+              else lib.flash_attention_tf32_launch)
         args = [_ptr, _ptr, _ptr, _ptr, _ptr, _i, _i, _i, _i, _i, _i, _i,
                 _i, ctypes.c_float, _i, _ptr]
-    elif path == "bwd_wgmma":
-        fn = _build.load(BWD_WGMMA_SOURCE).flash_attention_bwd_wgmma_launch
+    elif path in ("bwd_wgmma", "bwd_tf32x3"):
+        lib = _build.load(BWD_WGMMA_SOURCE if path == "bwd_wgmma"
+                          else BWD_TF32_SOURCE)
+        fn = (lib.flash_attention_bwd_wgmma_launch if path == "bwd_wgmma"
+              else lib.flash_attention_bwd_tf32_launch)
         args = [_ptr] * 12 + [_i] * 8 + [ctypes.c_float, _i, _i, _ptr, _ptr]
     elif path == "bwd_simt":
         fn = _build.load(BWD_SOURCE).flash_attention_bwd_launch
@@ -153,7 +171,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B,S,H,hd]; k, v [B,T,K,hd], contiguous, all float32 or all
     bfloat16, on one CUDA device; H % K == 0, hd <= 128 -> o [B,S,H,hd]
     in q's dtype. Positions are 0..S-1 (queries) and 0..T-1 (keys). The
-    kernel is `route(q.dtype, hd)`'s; the tensor-core kernel's tensor maps
+    kernel is `route(q.dtype, hd)`'s; the tensor-core kernels' tensor maps
     need 16-byte aligned q, k and v. Given ``lse`` (contiguous float32
     [B,H,S] on the same device), the kernel also writes each row's natural
     log-sum-exp of its scaled, masked scores there, for the backward."""
@@ -163,8 +181,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse is not None:
         check_tensor("lse", lse, (B, H, S), (torch.float32,), dev)
     path = route(q.dtype, hd)
-    if path == "wgmma" and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("the tensor-core flash kernel needs q, k and v "
+    if path != "simt" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the tensor-core flash kernels need q, k and v "
                          "16-byte aligned")
     o = torch.empty_like(q)
     if o.numel() == 0:
@@ -197,7 +215,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     v [B,T,K,hd] in one dtype (float32 or bfloat16), lse [B,H,S] float32
     (the forward's), all contiguous on one CUDA device -> (dq, dk, dv) in
     the inputs' dtype. Three kernel launches (`bwd_route`'s: D, dK / dV,
-    dQ); the tensor-core route's TMA maps need q, k, v, o and do 16-byte
+    dQ); the tensor-core routes' TMA maps need q, k, v, o and do 16-byte
     aligned. Counted once in `BWD_LAUNCHES` and in its route's count.
     Given ``events`` (four `torch.cuda.Event(enable_timing=True)`), they
     are recorded before D, after D, after dK / dV and after dQ, so that
@@ -210,7 +228,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     check_tensor("do", do, (B, S, H, hd), (q.dtype,), dev)
     check_tensor("lse", lse, (B, H, S), (torch.float32,), dev)
     path = bwd_route(q.dtype, hd)
-    if path == "wgmma" and any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
+    if path != "simt" and any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
         raise ValueError("the tensor-core flash backward needs q, k, v, o "
                          "and do 16-byte aligned")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -228,9 +246,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     mask = (int(causal), int(window) if window is not None else 0,
             float(hd ** -0.5))
     ptrs = [x.data_ptr() for x in (q, k, v, o, lse, do, dq, dk, dv)]
-    if path == "wgmma":
+    if path != "simt":
+        tile = BWD_TILE if path == "wgmma" else BWD_TF32_TILE
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        gsplit = g_split(B, K, T, H // K, n_sm)
+        gsplit = g_split(B, K, T, H // K, n_sm, tile)
         # -lse log2(e) and D, rows padded for the dK / dV kernel's copies
         rows = torch.empty((2, B, H, -(-S // BWD_ROW_PAD) * BWD_ROW_PAD),
                            dtype=torch.float32, device=dev)
@@ -238,8 +257,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         if gsplit > 1:
             ws = torch.empty((gsplit, 2, B, T, K, hd), dtype=torch.float32,
                              device=dev)
-            tickets = _tickets(B * K * -(-T // BWD_TILE), dev, stream)
-        err = _fn("bwd_wgmma")(
+            tickets = _tickets(B * K * -(-T // tile), dev, stream)
+        err = _fn("bwd_" + path)(
             *ptrs, rows.data_ptr(),
             ws.data_ptr() if ws is not None else None,
             tickets.data_ptr() if tickets is not None else None,

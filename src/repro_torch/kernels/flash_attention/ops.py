@@ -2,8 +2,9 @@
 `repro.kernels.flash_attention.ops`, differentiable.
 
 On a CUDA tensor the forward launches a CUDA kernel
-(`kernel.flash_attention_cuda`: the tensor-core kernel for bf16, the SIMT
-one for float32, as `kernel.route` says) and, where a gradient is wanted,
+(`kernel.flash_attention_cuda`: the tensor-core kernels for bf16 and, in
+split TF32, for float32, the SIMT one for a head_dim that is not a
+multiple of 8, as `kernel.route` says) and, where a gradient is wanted,
 has it write the rows' log-sum-exp; the backward launches the backward
 kernels (`kernel.flash_attention_bwd_cuda`) on the saved ``(q, k, v, o,
 lse)``. On a CPU tensor the forward takes the plain version

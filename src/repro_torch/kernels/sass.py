@@ -19,6 +19,7 @@ counts what the compiled code does, not what the source appears to do.
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
 import subprocess
@@ -134,15 +135,25 @@ def library_sass(lib: Path) -> str:
     return proc.stdout
 
 
+@functools.lru_cache(maxsize=None)
+def _library_functions(lib: str, mtime_ns: int) -> Dict[str, Instrs]:
+    """`functions` of ``lib``'s SASS, read once per build of the file:
+    one ``cuobjdump`` and one parse of a whole library take seconds, and
+    a library's kernels are read one by one."""
+    return functions(library_sass(Path(lib)))
+
+
 def kernel_instructions(lib: Path, name_part: str) -> Instrs:
     """The instructions of the one kernel in ``lib`` whose mangled name
     contains ``name_part``."""
-    funcs = {k: v for k, v in functions(library_sass(lib)).items()
-             if name_part in k}
+    lib = Path(lib)
+    funcs = {k: v for k, v in _library_functions(
+        str(lib.resolve()), lib.stat().st_mtime_ns).items()
+        if name_part in k}
     if len(funcs) != 1:
         raise ValueError(f"{len(funcs)} kernels in {lib.name} match "
                          f"{name_part!r}")
-    return next(iter(funcs.values()))
+    return list(next(iter(funcs.values())))
 
 
 def kernel_loop_instructions(lib: Path, name_part: str,

@@ -28,11 +28,11 @@ def test_every_attention_arch_is_listed():
 @pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_every_arch_takes_the_tensor_core_kernels_in_bf16(arch):
     """bf16 prefill takes the wgmma flash kernel at every arch's head
-    dim, float32 the SIMT one; the decode kernel takes every arch's
+    dim, float32 the split-TF32 one; the decode kernel takes every arch's
     grouping and head dim."""
     a = get_config(arch).attn
     assert FK.route(torch.bfloat16, a.head_dim) == "wgmma"
-    assert FK.route(torch.float32, a.head_dim) == "simt"
+    assert FK.route(torch.float32, a.head_dim) == "tf32x3"
     assert a.num_heads % a.num_kv_heads == 0
     assert a.num_heads // a.num_kv_heads <= DK.MAX_GROUP
     assert a.head_dim <= DK.MAX_HEAD_DIM and a.head_dim % 8 == 0
@@ -46,8 +46,12 @@ def test_every_arch_takes_the_tensor_core_kernels_in_bf16(arch):
     (torch.bfloat16, 100, "simt"),     # not a multiple of 8
     (torch.bfloat16, 4, "simt"),
     (torch.bfloat16, 136, "simt"),     # wider than the kernels take
-    (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt"),
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"),
+    (torch.float32, 16, "tf32x3"),     # the reduced configs' head dim
+    (torch.float32, 20, "simt"),       # not a multiple of 8
+    (torch.bfloat16, 20, "simt"),
+    (torch.float32, 136, "simt"),
     (torch.float16, 128, "simt"),
 ])
 def test_route_is_a_rule_of_dtype_and_head_dim(dtype, hd, want):

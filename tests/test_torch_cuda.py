@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the closed-loop kernel, flash attention (both routes, forward and
+the closed-loop kernel, flash attention (its three routes, forward and
 backward) and split-KV decode attention (the attention bars are
 `repro_torch.kernels.attention_cases`), the
 selective scan (its bar is `repro_torch.kernels.selective_scan.cases`),
@@ -48,6 +48,14 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _route(dtype: str, hd: int) -> str:
+    """The flash route a case must take: the tensor cores (bf16 "wgmma",
+    float32 "tf32x3") at head_dim a multiple of 8, else "simt"."""
+    if hd % 8:
+        return "simt"
+    return "wgmma" if dtype == "bfloat16" else "tf32x3"
 
 
 def _launch(route, prof, gains, seeds, T, sc, collect):
@@ -221,26 +229,47 @@ def test_seeds_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.parametrize("case", AC.FLASH_CASES + [AC.FLASH_SERVE,
-                                                   AC.FLASH_SERVE_F32],
+                                                   AC.FLASH_SERVE_F32,
+                                                   AC.FLASH_TRAIN_F32],
                          ids=str)
 def test_flash_kernel_matches_plain_version(dev, case):
     """Every case through the kernel `route` names (bf16: the tensor-core
-    kernel, float32: the SIMT one), counted once in `LAUNCHES` and once in
-    that route's count."""
+    kernel, float32: the split-TF32 one, head_dim 20: the SIMT one),
+    counted once in `LAUNCHES` and once in that route's count; a second
+    launch gives the same bits."""
     causal, window, dtype = case[5], case[6], case[7]
     q, k, v = AC.flash_inputs(case, dev)
     path = FK.route(q.dtype, q.shape[-1])
-    assert path == ("wgmma" if dtype == "bfloat16" else "simt")
+    assert path == _route(dtype, q.shape[-1])
     before, routes = FK.LAUNCHES, dict(FK.ROUTE_LAUNCHES)
     got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
     assert FK.LAUNCHES == before + 1
     assert FK.ROUTE_LAUNCHES[path] == routes[path] + 1
     assert sum(FK.ROUTE_LAUNCHES.values()) == sum(routes.values()) + 1
+    again = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     want = FR.attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == q.dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(),
                                **AC.tolerance(dtype))
+
+
+def test_flash_float32_bar_catches_a_lost_kv_tile(dev):
+    """float32 at the serving shape through the split-TF32 kernel: within
+    the 2e-5 bar, where a kernel that lost one 32-key tile for the last 64
+    query rows (`attention_cases.drop_kv_tile`) is not."""
+    causal, window, dtype = AC.FLASH_SERVE_F32[5:]
+    q, k, v = AC.flash_inputs(AC.FLASH_SERVE_F32, dev)
+    got = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = FR.attention_ref(q, k, v, causal=causal, window=window)
+    tol = AC.tolerance(dtype)
+    assert torch.allclose(got, want, **tol)
+    S = q.shape[1]
+    for keys in (slice(S - 32, S), slice(S // 2, S // 2 + 32)):
+        lost = AC.drop_kv_tile(q, k, v, slice(S - 64, S), keys,
+                               causal=causal, window=window)
+        assert not torch.allclose(lost, want, **tol)
 
 
 def test_flash_kernel_rows_at_the_serving_shape(dev):
@@ -358,6 +387,23 @@ def test_built_kernels_take_the_hopper_paths(dev):
     assert any(op.startswith("HMMA.16816.F32.BF16") for op in ops)
 
 
+def test_built_tf32_kernels_take_the_tensor_cores(dev):
+    """The SASS of the split-TF32 libraries: every instance of the float32
+    forward kernel and of the backward's dK / dV and dQ kernel issues
+    warpgroup TF32 products (HGMMA ... .F32.TF32) on tiles that TMA loads
+    (UTMALDG)."""
+    from repro_torch.kernels import _build, sass
+    fwd, bwd = _build.build_all([FK.TF32_SOURCE, FK.BWD_TF32_SOURCE])
+    parts = [(fwd, f"flash_fwd_tf32_kernelILi{hdp}E") for hdp in (32, 64, 128)]
+    parts += [(bwd, f"flash_bwd_tf32_kernelILi{hdp}ELb{dkdv}E")
+              for hdp in (32, 64, 128) for dkdv in (0, 1)]
+    for lib, part in parts:
+        ops = sass.opcodes(sass.kernel_instructions(lib, part))
+        assert any(op.startswith("HGMMA.64x32x8.F32.TF32") for op in ops), \
+            part
+        assert any(op.startswith("UTMALDG.4D") for op in ops), part
+
+
 def test_built_backward_takes_the_tensor_cores(dev):
     """The SASS of the flash backward's tensor-core library: both bf16
     kernels (dK / dV and dQ, both head-dim instances) issue warpgroup
@@ -382,11 +428,11 @@ def test_serving_path_runs_through_the_kernels(dev):
     from repro_torch.launch import serve
     argv = ["--reduced", "--batch", "2", "--prompt-len", "1024", "--gen",
             "4", "--quiet"]
-    f0, d0, w0 = FK.LAUNCHES, DK.LAUNCHES, FK.ROUTE_LAUNCHES["simt"]
+    f0, d0, w0 = FK.LAUNCHES, DK.LAUNCHES, FK.ROUTE_LAUNCHES["tf32x3"]
     got = serve.main(argv, device=dev)["generated"]
     assert (FK.LAUNCHES - f0, DK.LAUNCHES - d0) == (1, 4)
-    # the reduced model computes in float32: the SIMT route
-    assert FK.ROUTE_LAUNCHES["simt"] - w0 == 1
+    # the reduced model computes in float32 at head_dim 16: split TF32
+    assert FK.ROUTE_LAUNCHES["tf32x3"] - w0 == 1
     want = serve.main(argv, device="cpu")["generated"]
     np.testing.assert_array_equal(got, want)
 
@@ -554,12 +600,12 @@ def test_jamba_serving_path_runs_through_the_kernels(dev):
     argv = ["--arch", "jamba-v0.1-52b", "--reduced", "--batch", "2",
             "--prompt-len", "1024", "--gen", "4", "--quiet"]
     s0, f0, d0 = SK.LAUNCHES, FK.LAUNCHES, DK.LAUNCHES
-    w0 = FK.ROUTE_LAUNCHES["simt"]
+    w0 = FK.ROUTE_LAUNCHES["tf32x3"]
     got = serve.main(argv, device=dev)["generated"]
     assert (SK.LAUNCHES - s0, FK.LAUNCHES - f0, DK.LAUNCHES - d0) == \
         (7 + 7 * 4, 1, 4)
-    # the reduced model computes in float32: the SIMT route
-    assert FK.ROUTE_LAUNCHES["simt"] - w0 == 1
+    # the reduced model computes in float32 at head_dim 16: split TF32
+    assert FK.ROUTE_LAUNCHES["tf32x3"] - w0 == 1
     want = serve.main(argv, device="cpu")["generated"]
     np.testing.assert_array_equal(got, want)
 
@@ -1316,7 +1362,8 @@ def test_flash_kernel_writes_the_row_lse(dev, case):
 def test_flash_backward_kernel_matches_plain_versions(dev, case):
     """The backward kernels on the forward kernel's o and lse, counted
     once in `BWD_LAUNCHES` and in their route's count (`bwd_route`:
-    "wgmma" for bf16, "simt" for float32): against the plain route's
+    "wgmma" for bf16, "tf32x3" for float32, "simt" at head_dim 20):
+    against the plain route's
     autograd at `attention_cases.bwd_readings`' bars, and against
     `ref.attention_bwd_ref` on the same o and lse (float32: 1e-4 of the
     largest grad; bf16: within the same bar). A backward that loses one
@@ -1328,7 +1375,7 @@ def test_flash_backward_kernel_matches_plain_versions(dev, case):
     o = FK.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 lse=lse)
     path = FK.bwd_route(q.dtype, hd)
-    assert path == ("wgmma" if dtype == "bfloat16" else "simt")
+    assert path == _route(dtype, hd)
     before, routes = FK.BWD_LAUNCHES, dict(FK.BWD_ROUTE_LAUNCHES)
     got = FK.flash_attention_bwd_cuda(q, k, v, o, lse, g, causal=causal,
                                       window=window)
@@ -1353,11 +1400,13 @@ def test_flash_backward_kernel_matches_plain_versions(dev, case):
     assert broken[1] > bars[1] and broken[2] > bars[2]
 
 
-def test_flash_backward_is_deterministic(dev):
-    """Two backward calls at the training shape give the same bits: the
-    head groups' partials are summed in group order, whichever block
-    finishes last."""
-    q, k, v = AC.flash_inputs(AC.FLASH_TRAIN, dev)
+@pytest.mark.parametrize("case", [AC.FLASH_TRAIN, AC.FLASH_TRAIN_F32],
+                         ids=str)
+def test_flash_backward_is_deterministic(dev, case):
+    """Two backward calls at the training shape give the same bits, on
+    both tensor-core routes: the head groups' partials are summed in group
+    order, whichever block finishes last."""
+    q, k, v = AC.flash_inputs(case, dev)
     g = AC.grad_output(q)
     B, S, H = q.shape[:3]
     lse = torch.empty((B, H, S), device=dev)
@@ -1443,13 +1492,14 @@ def test_train_backward_runs_the_kernels_under_every_remat(dev,
         cfg = dataclasses.replace(base, remat=remat)
         params = init_params(cfg, 0, dev)
         FK.BWD_LAUNCHES = 0
-        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, simt=0)
+        FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
         loss, _, grads = value_and_grads(
             cfg, ApplyOptions(attn_impl="cuda", block_q=32), params, batch)
         assert np.isfinite(float(loss))
         assert all(bool(torch.isfinite(x).all()) for x in grads)
         assert FK.BWD_LAUNCHES == 2, remat
-        assert FK.BWD_ROUTE_LAUNCHES == {"wgmma": 2, "simt": 0}, remat
+        assert FK.BWD_ROUTE_LAUNCHES == {"wgmma": 2, "tf32x3": 0,
+                                         "simt": 0}, remat
     assert not plain_calls
 
 

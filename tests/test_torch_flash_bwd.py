@@ -169,8 +169,8 @@ def test_bwd_ref_sums_the_query_heads_of_each_kv_head():
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 120, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 8, "wgmma"),
-    (torch.bfloat16, 36, "simt"), (torch.float32, 128, "simt"),
-    (torch.float32, 48, "simt")])
+    (torch.bfloat16, 36, "simt"), (torch.float32, 128, "tf32x3"),
+    (torch.float32, 48, "tf32x3"), (torch.float32, 20, "simt")])
 def test_bwd_route_follows_the_forward_route(dtype, hd, want):
     assert FK.bwd_route(dtype, hd) == want
     assert FK.route(dtype, hd) == want
@@ -187,6 +187,17 @@ def test_head_split_fills_the_card(B, K, T, G, want):
     """`g_split` on a 132-SM card: the least divisor of G that gives at
     least one wave of its 128-key blocks, one a multiprocessor."""
     got = FK.g_split(B, K, T, G, 132)
+    assert got == want and G % got == 0
+
+
+@pytest.mark.parametrize("B,K,T,G,want", [
+    (4, 2, 2048, 12, 1),     # starcoder2-3b's training shape: 256 blocks
+    (1, 2, 2048, 12, 3),     # at batch 1: 64 blocks
+    (2, 2, 128, 2, 2)])      # a small case: every group its own block
+def test_head_split_counts_the_split_tf32_tile(B, K, T, G, want):
+    """On the split-TF32 route a dK / dV block owns 64 keys
+    (`BWD_TF32_TILE`), so `g_split` counts twice the bf16 route's blocks."""
+    got = FK.g_split(B, K, T, G, 132, FK.BWD_TF32_TILE)
     assert got == want and G % got == 0
 
 

@@ -139,3 +139,32 @@ def test_local_memory_names_spills_only():
         "STL": 1, "LDL.LU": 1, "LDL": 1}
     (instrs,) = sass.functions(HOPPER).values()
     assert sass.local_memory(sass.opcodes(instrs)) == {}
+
+
+def test_kernel_instructions_reads_a_library_once(tmp_path, monkeypatch):
+    """One ``cuobjdump`` a built library, however many of its kernels are
+    read; a library built anew (another mtime) is read again."""
+    import os
+
+    lib = tmp_path / "lib.so"
+    lib.write_bytes(b"")
+    reads = []
+
+    def fake_sass(path):
+        reads.append(path)
+        return LOOP + "\n" + listing("EXIT", name="_Z5otherv")
+
+    monkeypatch.setattr(sass, "library_sass", fake_sass)
+    loop = sass.kernel_instructions(lib, "6kernel")
+    assert sass.loop_instructions(loop) == 5
+    loop.clear()  # the caller's copy: the cached listing stays whole
+    assert sass.loop_instructions(sass.kernel_instructions(lib,
+                                                           "6kernel")) == 5
+    assert len(sass.kernel_instructions(lib, "5other")) == 1
+    assert len(reads) == 1
+    st = lib.stat()
+    os.utime(lib, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    sass.kernel_instructions(lib, "5other")
+    assert len(reads) == 2
+    with pytest.raises(ValueError):
+        sass.kernel_instructions(lib, "kernel_not_there")
