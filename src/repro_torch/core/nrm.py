@@ -65,6 +65,7 @@ from repro_torch.core.workloads.detect import (DetectorConfig, detect_init,
 from repro_torch.kernels.closed_loop import ops
 from repro_torch.obs import events as evt
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 Device = Union[None, str, torch.device]
 _M64 = (1 << 64) - 1
@@ -122,15 +123,17 @@ class SimulatedPowerActuator(PowerActuator):
                                    self.profile.pcap_max))
 
     def advance(self, dt: float) -> Dict[str, float]:
-        noise = ops.draw_noise(self._seeds, 1, t0=self.periods)[0, :4, 0]
-        self.periods += 1
-        self.state, meas = plant_step(self.profile, self.state, self._pcap,
-                                      dt, noise)
-        keys = list(meas)
-        vals = torch.stack([meas[k].to(self.device, torch.float32)
-                            for k in keys]).tolist()  # one sync
-        self._last_meas = dict(zip(keys, vals))
-        return self._last_meas
+        with obs_trace.span("nrm.advance"):
+            noise = ops.draw_noise(self._seeds, 1,
+                                   t0=self.periods)[0, :4, 0]
+            self.periods += 1
+            self.state, meas = plant_step(self.profile, self.state,
+                                          self._pcap, dt, noise)
+            keys = list(meas)
+            vals = torch.stack([meas[k].to(self.device, torch.float32)
+                                for k in keys]).tolist()  # one sync
+            self._last_meas = dict(zip(keys, vals))
+            return self._last_meas
 
     def read_power(self) -> float:
         return self._last_meas.get("power", float("nan"))
@@ -222,7 +225,8 @@ class NRM:
     # ---- workload-facing API ---------------------------------------------
     def heartbeat(self, work: float = 1.0,
                   t: Optional[float] = None) -> None:
-        self.hb.beat(self._t if t is None else t, work)
+        with obs_trace.span("nrm.heartbeat"):
+            self.hb.beat(self._t if t is None else t, work)
 
     def calibrate(self, full_power_rate: float) -> None:
         """Rescale the plant's linear gain so progress_max matches the
@@ -281,7 +285,13 @@ class NRM:
         loop's simulated time) drives the schedule; dt is then derived.
         With detector= the change-point detector runs first each period:
         an alarm resets the RLS estimator / fires the policy's
-        `on_change` hook and is recorded on the ControlRecord."""
+        `on_change` hook and is recorded on the ControlRecord. The
+        period is the span ``nrm.control_step`` (`obs.trace`)."""
+        with obs_trace.span("nrm.control_step"):
+            return self._control_step(dt, now)
+
+    def _control_step(self, dt: Optional[float],
+                      now: Optional[float]) -> ControlRecord:
         if now is not None:
             if dt is None:
                 dt = max(now - self._t, 1e-6)

@@ -25,6 +25,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import (abstract, tree_leaves_with_path,
                                        tree_map)
 from repro_torch.models.types import ApplyOptions
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adamw import adamw_init_defs, apply_adamw
 from repro_torch.optim.compression import compress_grads, ef_init_defs
 from repro_torch.optim.schedule import lr_schedule
@@ -79,11 +80,16 @@ def value_and_grads(cfg: ModelConfig, opts: ApplyOptions, params: dict,
     (`M.unstack_blocks`), so no gradient of a whole stack is formed per
     layer. Returns (loss, metrics, grads): 0-d float32 tensors detached
     from the graph, and one gradient per leaf of
-    ``M.unstack_blocks(cfg, params)`` in its leaf order."""
+    ``M.unstack_blocks(cfg, params)`` in its leaf order. The loss and the
+    gradients are the spans ``steps.forward`` and ``steps.backward``
+    (`obs.trace`; the backward's on the calling thread, which waits while
+    autograd's own runs)."""
     per_layer = M.unstack_blocks(cfg, params)
     leaves = [p.detach().requires_grad_() for p in _leaves(per_layer)]
-    loss, metrics = M.loss_fn(cfg, opts, _fill(per_layer, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with obs_trace.span("steps.forward"):
+        loss, metrics = M.loss_fn(cfg, opts, _fill(per_layer, leaves), batch)
+    with obs_trace.span("steps.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, [
         torch.zeros_like(p) if g is None else g
         for p, g in zip(leaves, grads)]
@@ -109,12 +115,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     and the updated params gathered back into theirs (`apply_adamw`).
     ``micro_hook(i, n_micro)``, when given, is called before microbatch
     ``i``; once it returns False the remaining microbatches are not run
-    (the dry-run traces two and counts the others as repeats)."""
+    (the dry-run traces two and counts the others as repeats). A step is
+    the span ``steps.train_step`` (`obs.trace`)."""
     use_ef = tcfg.grad_compression == "int8_ef"
     accum_dt = getattr(torch, tcfg.accum_dtype)
 
     def train_step(params, opt_state, batch, ef_state=None):
-        with _bound(rules):
+        with _bound(rules), obs_trace.span("steps.train_step"):
             return _train_step(params, opt_state, batch, ef_state)
 
     def _train_step(params, opt_state, batch, ef_state):

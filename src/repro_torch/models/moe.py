@@ -8,7 +8,9 @@ port). Experts are sharded on the ``model`` axis, padded to its multiple
 when they do not divide it. The routing (argmax, one-hot, cumsum) has no
 DTensor rule and runs on each rank's groups under `local_map`
 (`sharding.local_call`). Returns the load-balancing auxiliary loss
-(Switch-style) alongside outputs.
+(Switch-style) alongside outputs. A call is the span ``moe.apply``
+(`obs.trace`); while spans record, the calls tally their expert slots
+(`SLOTS`, `slot_fill`).
 """
 from __future__ import annotations
 
@@ -18,9 +20,37 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (current_rules, local_call,
-                                              mesh_axes, shard)
+from repro_torch.distributed.sharding import (current_rules, is_dtensor,
+                                              local_call, mesh_axes, shard)
 from repro_torch.models.layers import ParamDef, rms_norm, rms_norm_def
+from repro_torch.obs import trace as obs_trace
+
+# Expert slots of the calls made while spans record (`obs.trace`): slots
+# filled by routed tokens (a device tensor, read to the host only by
+# `slot_fill`) and slots computed (G x E_pad x C), summed over the calls.
+SLOTS = {"filled": None, "computed": 0}
+
+
+def slot_fill() -> Tuple[int, int]:
+    """(slots filled, slots computed) over the calls tallied so far."""
+    filled = SLOTS["filled"]
+    return (0 if filled is None else int(filled)), SLOTS["computed"]
+
+
+def _tally(frac_tokens: torch.Tensor, computed: int) -> None:
+    """Adds a call's filled slots (the nonzero entries of its dispatch:
+    ``frac_tokens`` holds 0 or 1 a token and expert, so the float32 sum
+    is exact below 2**24) and its ``computed`` slots to `SLOTS`, on the
+    device."""
+    n = frac_tokens.detach().sum()
+    if is_dtensor(n):
+        n = n.full_tensor()
+    n = n.to(torch.int64)
+    if SLOTS["filled"] is None:
+        SLOTS["filled"] = n
+    else:
+        SLOTS["filled"].add_(n.to(SLOTS["filled"].device))
+    SLOTS["computed"] += computed
 
 
 def _expert_padding(E: int) -> int:
@@ -104,6 +134,12 @@ def _route(gates: torch.Tensor, top_k: int, capacity: int
 def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss)."""
+    with obs_trace.span("moe.apply"):
+        return _moe_apply(cfg, p, x)
+
+
+def _moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     mo = cfg.moe
     B, S, D = x.shape
     E, K = mo.num_experts, mo.top_k
@@ -128,6 +164,8 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
     # pad the experts so E shards on the model axis (no-op when E already
     # divides it, on one rank, or without rules)
     E_pad = _expert_padding(E)
+    if obs_trace.recording():
+        _tally(frac_tokens, G * E_pad * C)
     if E_pad != E:
         dispatch = F.pad(dispatch, (0, 0, 0, E_pad - E))
         combine = F.pad(combine, (0, 0, 0, E_pad - E))

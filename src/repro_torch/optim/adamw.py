@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.layers import (ParamDef, is_def, tree_leaves_with_path,
                                        tree_map)
+from repro_torch.obs import trace as obs_trace
 
 # elements of a leaf updated at once (256 MB of one fp32 temporary)
 PIECE = 1 << 26
@@ -71,30 +72,32 @@ def apply_adamw(cfg: TrainConfig, quads: List[Tuple[torch.Tensor, ...]],
     """The AdamW update of each (param, grad, m, v) in ``quads`` (leaves or
     slices of leaves; params, m and v are written in place) at the
     incremented ``step`` -> the pre-clip global grad norm. A DTensor
-    gradient is first reduced into its moments' layout, once."""
-    quads = [(p, g.redistribute(m.device_mesh, m.placements), m, v)
-             if _is_dtensor(g) else (p, g, m, v) for p, g, m, v in quads]
-    gnorm = global_norm(g for _, g, _, _ in quads)
-    if cfg.grad_clip > 0:
-        clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                           max=1.0)
-    else:
-        clip = torch.ones_like(gnorm)
-    b1, b2 = cfg.beta1, cfg.beta2
-    c1 = 1.0 - b1 ** step.to(torch.float32)
-    c2 = 1.0 - b2 ** step.to(torch.float32)
-    if any(_is_dtensor(t) for t in (gnorm, step, lr)):
-        # replicated scalars: each rank's local value is the whole one
-        clip, c1, c2, lr_l = (_whole(t) for t in (clip, c1, c2, lr))
-    else:
-        lr_l = lr
-    for quad in quads:
-        if _is_dtensor(quad[0]):
-            _update_sharded(cfg, quad, clip, c1, c2, lr_l)
-            continue
-        for p, g, m, v in zip(*(pieces(t) for t in quad)):
-            _update(cfg, p, g, m, v, clip, c1, c2, lr)
-    return gnorm
+    gradient is first reduced into its moments' layout, once. The whole
+    update is the span ``adamw.apply`` (`obs.trace`)."""
+    with obs_trace.span("adamw.apply"):
+        quads = [(p, g.redistribute(m.device_mesh, m.placements), m, v)
+                 if _is_dtensor(g) else (p, g, m, v) for p, g, m, v in quads]
+        gnorm = global_norm(g for _, g, _, _ in quads)
+        if cfg.grad_clip > 0:
+            clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                               max=1.0)
+        else:
+            clip = torch.ones_like(gnorm)
+        b1, b2 = cfg.beta1, cfg.beta2
+        c1 = 1.0 - b1 ** step.to(torch.float32)
+        c2 = 1.0 - b2 ** step.to(torch.float32)
+        if any(_is_dtensor(t) for t in (gnorm, step, lr)):
+            # replicated scalars: each rank's local value is the whole one
+            clip, c1, c2, lr_l = (_whole(t) for t in (clip, c1, c2, lr))
+        else:
+            lr_l = lr
+        for quad in quads:
+            if _is_dtensor(quad[0]):
+                _update_sharded(cfg, quad, clip, c1, c2, lr_l)
+                continue
+            for p, g, m, v in zip(*(pieces(t) for t in quad)):
+                _update(cfg, p, g, m, v, clip, c1, c2, lr)
+        return gnorm
 
 
 def _whole(t) -> torch.Tensor:
