@@ -187,7 +187,8 @@ Phases, each of which fails the run if a check fails:
    full / dots / none; (b) starcoder2-3b at full width and depth,
    `make_train_step` at batch 4 x 2,048 for 6 steps (the first step's
    loss and grad norm against the plain path, 60 flash launches and 30
-   backward-kernel calls a step, no plain recompute, the loss falling,
+   backward-kernel calls a step, no plain recompute, 6 AdamW kernel
+   launches a step, the loss falling,
    step wall, tokens/s, peak memory, a profile by part, the step's
    bound); (d) `launch/train.train` with
    the NRM in the loop for 12 steps (energy, simulated time, the caps,
@@ -196,7 +197,12 @@ Phases, each of which fails the run if a check fails:
    restored bit for bit with the NRM state round-tripping, and a
    `--resume` child finishing the run; (f) xlstm-350m at full width:
    one train step, a served batch, one float32 repeat on the card
-   against the CPU.
+   against the CPU; (g) AdamW's kernels at starcoder2-3b's 3.2e9
+   parameters in 243 quads: the norm within 3 x 2^-24 of a float64 sum,
+   the update equal to `_update` bit for bit in p, m and v of every
+   quad, 6 launches, and a step's device ms in turns with the plain
+   route and `torch.optim.AdamW(fused=True)` (the library yardstick)
+   beside the 24-byte bound.
 
 17. the dry-run of the production meshes (`[dryrun]` lines): the
    port's `repro_torch.launch.dryrun` in three children at once,
@@ -3220,6 +3226,22 @@ XLSTM_CUT_REL = 1e-4
 # forward, 2 N tokens, at the bf16 tensor rate (attention's own flops
 # come on top)
 TRAIN_FLOPS_PER_PARAM_TOKEN = 8
+# AdamW's kernels a step at starcoder2-3b's 243 quads, all of one dtype
+# combination: ceil(243 / 184) norm launches (184 tensors fill a launch's
+# 4 KB of arguments), one finalize, ceil(243 / 88) update launches
+ADAMW_LAUNCHES = 6
+# (g) the kernels' norm against a float64 sum of the same gradients: a
+# square is rounded once to float32, eight are summed in float32 as a tree
+# of depth 3 and those sums in double, so every term carries at most 4
+# roundings (u = 2^-24); the square root halves that and its own rounding
+# adds u: 3u
+ADAMW_NORM_RTOL = 3 * 2.0 ** -24
+# the least traffic of a step a parameter: p (bf16), m and v (float32)
+# read and written once and g (bf16) read, 22 bytes; the clip needs the
+# norm before any update, so g is read once more, 2 bytes
+ADAMW_BYTES_PER_PARAM = 22 + 2
+# the step at which (g) updates (its bias corrections c1, c2)
+ADAMW_STEP = 3
 
 
 @contextlib.contextmanager
@@ -3564,6 +3586,7 @@ def _train_full_width(dev, smi, mesh) -> dict:
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.data.pipeline import TokenIterator, for_config
     from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels.adamw import kernel as AK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.mesh import describe, dtensor_leaves
     from repro_torch.launch.steps import (make_train_step, opt_rules_for,
@@ -3621,9 +3644,10 @@ def _train_full_width(dev, smi, mesh) -> dict:
 
     step = make_train_step(cfg, tcfg, kern, rules)
     losses, walls, per_step, bwd_calls, prof = [], [], [], [], None
-    bwd_kernel, plain_calls = [], []
+    bwd_kernel, plain_calls, adamw_launches = [], [], []
     for i in range(TRAIN_STEPS):
         batch = next(it)
+        AK.LAUNCHES = 0
         FK.LAUNCHES = FK.BWD_LAUNCHES = 0
         FK.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
         FK.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, simt=0)
@@ -3647,6 +3671,7 @@ def _train_full_width(dev, smi, mesh) -> dict:
         bwd_calls.append(calls[0])
         bwd_kernel.append(FK.BWD_LAUNCHES)
         plain_calls.append(plain[0])
+        adamw_launches.append(AK.LAUNCHES)
         check(FK.ROUTE_LAUNCHES == {"wgmma": FK.LAUNCHES, "tf32x3": 0,
                                     "simt": 0},
               f"training flash routes {FK.ROUTE_LAUNCHES}")
@@ -3667,6 +3692,8 @@ def _train_full_width(dev, smi, mesh) -> dict:
     check(bwd_kernel == [L] * TRAIN_STEPS and plain_calls == [0] *
           TRAIN_STEPS, f"backward kernel calls a step {bwd_kernel}, "
           f"plain calls {plain_calls}, expected {L} and 0")
+    check(adamw_launches == [ADAMW_LAUNCHES] * TRAIN_STEPS, f"AdamW kernel "
+          f"launches a step {adamw_launches}, expected {ADAMW_LAUNCHES}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     tokens = TRAIN_B * TRAIN_S
     wall = float(np.mean(walls[1:]))  # the first builds and warms
@@ -3680,7 +3707,8 @@ def _train_full_width(dev, smi, mesh) -> dict:
           f"step {per_step[0]} (all tensor-core), flash backward calls a "
           f"step {bwd_calls[0]}, each one call of the backward kernels "
           f"({bwd_kernel[0]} a step, wgmma route) and no plain recompute "
-          f"({plain_calls[0]}); peak device memory {peak:.2f} GiB; bound "
+          f"({plain_calls[0]}); AdamW kernel launches a step "
+          f"{adamw_launches[0]}; peak device memory {peak:.2f} GiB; bound "
           f"{bound_s:.3f} s a step ({TRAIN_FLOPS_PER_PARAM_TOKEN} N tokens "
           f"= {bound_s * BF16_PER_S:.3g} flop at the bf16 tensor rate), "
           f"{100 * bound_s / wall:.1f}% of it; {smi}")
@@ -3688,7 +3716,7 @@ def _train_full_width(dev, smi, mesh) -> dict:
     torch.cuda.empty_cache()
     return {"wall": wall, "peak": peak, "launches": per_step[0],
             "bwd_calls": bwd_kernel[0], "tok_s": tokens / wall,
-            "profile": prof}
+            "profile": prof, "adamw_launches": adamw_launches[0]}
 
 
 def train_power(dev, full) -> None:
@@ -3697,11 +3725,12 @@ def train_power(dev, full) -> None:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.kernels.adamw import kernel as AK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch import train as T
 
     cfg = get_config(TRAIN_ARCH)
-    FK.LAUNCHES = 0
+    FK.LAUNCHES = AK.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = T.train(cfg, ShapeConfig("train_2k", "train", TRAIN_S, TRAIN_B),
@@ -3712,6 +3741,8 @@ def train_power(dev, full) -> None:
     n = POWER_STEPS
     check(FK.LAUNCHES == n * 2 * cfg.num_layers,
           f"train --power flash launches {FK.LAUNCHES}")
+    check(AK.LAUNCHES == n * ADAMW_LAUNCHES,
+          f"train --power AdamW kernel launches {AK.LAUNCHES}")
     check(len(res["pcaps"]) >= n // 2, f"the NRM ran {len(res['pcaps'])} "
           f"control periods in {n} steps")
     check(res["energy_j"] > 0 and res["sim_time_s"] > 0
@@ -3726,7 +3757,8 @@ def train_power(dev, full) -> None:
           f"{1e3 * res['nrm_wall_s'] / (n - 1):.3f} ms a step; step wall "
           f"{step_wall:.3f} s (phase 16 (b): {full['wall']:.3f} s); loss "
           f"{res['first_loss']:.4f} -> {res['final_loss']:.4f}; flash "
-          f"launches {FK.LAUNCHES}; peak device memory "
+          f"launches {FK.LAUNCHES}, AdamW kernel launches {AK.LAUNCHES}; "
+          f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.empty_cache()
 
@@ -3884,9 +3916,133 @@ def xlstm_phase(dev) -> None:
           f"({time.perf_counter() - t0:.1f} s)")
 
 
+def adamw_phase(dev, smi) -> dict:
+    """Phase 16 (g): AdamW's kernels at starcoder2-3b's size, its 243 quads
+    as `make_train_step` hands them over (a stacked leaf a layer slice at
+    a time, views of the leaves), bf16 params and grads, float32 moments,
+    quad i drawn from seed i so that its start can be drawn again. The
+    norm against a float64 sum, `kernel.update` against `_update` on each
+    quad's start drawn again (bit for bit, p, m and v), then a step's
+    device ms by CUDA events in turns: the kernels (`apply_adamw`), the
+    plain route (`plain_apply`, which the port runs on the CPU only) and
+    `torch.optim.AdamW(fused=True)` on the same leaves (the library
+    yardstick: bf16 moments, weight decay outside the update, never called
+    by the port). Returns the readings for the kernels line."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.adamw import kernel as AK
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import (is_def, tree_leaves_with_path,
+                                           tree_map)
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    cfg, tcfg = get_config(TRAIN_ARCH), TrainConfig(learning_rate=TRAIN_LR)
+    defs = M.model_defs(cfg)
+    trees = [tree_map(lambda d: torch.empty(d.shape, dtype=t, device=dev),
+                      defs, is_leaf=is_def)
+             for t in (torch.bfloat16, torch.bfloat16, torch.float32,
+                       torch.float32)]
+    quads = list(zip(*([x for _, x in tree_leaves_with_path(
+        M.unstack_blocks(cfg, t))] for t in trees)))
+    gen = torch.Generator(device=dev)
+
+    def start(i):
+        """Quad i's (p, g, m, v) before the update, drawn from seed i."""
+        gen.manual_seed(i)
+        r = lambda s: torch.randn(quads[i][0].shape, generator=gen,
+                                  device=dev) * s
+        return (r(0.02).bfloat16(), r(1e-3).bfloat16(), r(1e-4),
+                torch.square(r(1e-4)))
+
+    for i, q in enumerate(quads):
+        for x, y in zip(q, start(i)):
+            x.copy_(y)
+    n = sum(q[0].numel() for q in quads)
+    grads = [q[1] for q in quads]
+    exact = math.sqrt(sum(float(torch.sum(torch.square(g.double())))
+                          for g in grads))
+    AK.LAUNCHES = 0
+    gnorm, clip = AK.norm_and_clip(grads, tcfg.grad_clip)
+    norm_rel = abs(float(gnorm) - exact) / exact
+    check(norm_rel <= ADAMW_NORM_RTOL, f"AdamW norm {float(gnorm)!r} vs "
+          f"float64 {exact!r}: rel {norm_rel:.3e}")
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    k = f32(float(ADAMW_STEP))
+    c1, c2 = 1.0 - tcfg.beta1 ** k, 1.0 - tcfg.beta2 ** k
+    lr = f32(TRAIN_LR)
+    AK.update(quads, clip, c1, c2, lr, tcfg.beta1, tcfg.beta2, tcfg.eps,
+              tcfg.weight_decay)
+    launches = AK.LAUNCHES
+    check(launches == ADAMW_LAUNCHES, f"AdamW norm and update at "
+          f"{len(quads)} quads: {launches} launches, expected "
+          f"{ADAMW_LAUNCHES}")
+    unequal = []
+    for i, q in enumerate(quads):
+        want = start(i)
+        for piece in zip(*(adamw.pieces(t) for t in want)):
+            adamw._update(tcfg, *piece, clip, c1, c2, lr)
+        unequal += [(i, name, float((x.float() - y.float()).abs().max()))
+                    for name, x, y in zip("pgmv", q, want)
+                    if not torch.equal(x, y)]
+        del want
+    check(not unequal, f"AdamW update kernel != _update (quad, tensor, max "
+          f"abs diff): {unequal[:8]}")
+    check_s = time.perf_counter() - t0
+
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def kernels():
+        adamw.apply_adamw(tcfg, quads, step.add_(1), lr)
+
+    def plain():
+        s = step.add_(1).to(torch.float32)
+        adamw.plain_apply(tcfg, quads, step, lr, 1.0 - tcfg.beta1 ** s,
+                          1.0 - tcfg.beta2 ** s)
+
+    leaves = [[x for _, x in tree_leaves_with_path(t)] for t in trees[:2]]
+    for p, g in zip(*leaves):
+        p.grad = g
+    lib = torch.optim.AdamW(leaves[0], lr=TRAIN_LR,
+                            betas=(tcfg.beta1, tcfg.beta2), eps=tcfg.eps,
+                            weight_decay=tcfg.weight_decay, fused=True)
+    turns = {"kernels": [], "plain": [], "library": []}
+    for name in ("kernels", "plain", "library", "library", "plain",
+                 "kernels"):
+        fn = {"kernels": kernels, "plain": plain, "library": lib.step}[name]
+        turns[name].append(cuda_ms(fn, reps=2 if name == "plain" else 5,
+                                   warmup=1))
+    ms, plain_ms, lib_ms = (float(np.mean(turns[x])) for x in
+                            ("kernels", "plain", "library"))
+    bound_ms = ADAMW_BYTES_PER_PARAM * n / HBM_BYTES_PER_S * 1e3
+    print(f"[train] AdamW kernels at {TRAIN_ARCH}'s {n} parameters in "
+          f"{len(quads)} quads (bf16 p and g, float32 m and v): norm rel "
+          f"{norm_rel:.3e} to a float64 sum (bar {ADAMW_NORM_RTOL:.3e}); "
+          f"update equal to _update bit for bit in p, m and v of every "
+          f"quad; {launches} launches ({check_s:.1f} s). A step, device ms "
+          f"in turns: kernels {ms:.3f} ("
+          + ", ".join(f"{x:.3f}" for x in turns["kernels"])
+          + f"), plain route {plain_ms:.2f} ("
+          + ", ".join(f"{x:.2f}" for x in turns["plain"])
+          + f"), torch.optim.AdamW(fused=True) {lib_ms:.3f} ("
+          + ", ".join(f"{x:.3f}" for x in turns["library"])
+          + f"; bf16 moments); bound {bound_ms:.3f} ms "
+          f"({ADAMW_BYTES_PER_PARAM} bytes a parameter at the HBM rate), "
+          f"{100 * bound_ms / ms:.1f}% of it; {smi}")
+    del lib, leaves, quads, trees, grads
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "norm_rel_err": norm_rel,
+            "parameters": n}
+
+
 def train_phase(dev, smi) -> dict:
     """Phase 16: training on the card. Returns the flash row's training
-    reading and the flash backward's row for the kernels line."""
+    reading and the flash backward's and AdamW's rows for the kernels
+    line."""
     import torch
     t0 = time.perf_counter()
     op = flash_op_phase(dev)                  # (a)
@@ -3896,6 +4052,7 @@ def train_phase(dev, smi) -> dict:
     train_kill_resume(dev)                    # (e)
     xlstm_phase(dev)                          # (f)
     torch.cuda.empty_cache()
+    opt = adamw_phase(dev, smi)               # (g)
     print(f"[train] phase 16 in {time.perf_counter() - t0:.1f} s")
     b, f = op["bfloat16"], op["float32"]
     bwd_row = {
@@ -3913,7 +4070,18 @@ def train_phase(dev, smi) -> dict:
         "float32_bound_ms": f["bound_ms"],
         "float32_ffma_bound_ms": f["ffma_bound_ms"],
         "float32_max_abs_err": f["max_abs_err"]}
-    return {"train_launches_per_step": full["launches"]}, bwd_row
+    adamw_row = {
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/adamw/csrc/adamw.cu",
+        # no TPU kernel: the JAX package leaves AdamW to XLA's fusion
+        "replaces": None,
+        "launches": full["adamw_launches"], "calls_per_step": 1,
+        # (g) requires the update equal to `_update` bit for bit
+        "max_abs_err": 0.0, "norm_rel_err": opt["norm_rel_err"],
+        "ms": opt["ms"], "plain_ms": opt["plain_ms"],
+        "bound_ms": opt["bound_ms"], "bound_by": "HBM",
+        "library_ms": opt["library_ms"], "parameters": opt["parameters"]}
+    return {"train_launches_per_step": full["launches"]}, bwd_row, adamw_row
 
 
 # ---- phase 17: the dry-run of the production meshes ------------------------
@@ -4393,15 +4561,16 @@ def main() -> int:
           f"count {torch.cuda.device_count()}")
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.adamw import kernel as AK
     from repro_torch.kernels.selective_scan import kernel as SK
     t0 = time.perf_counter()
     lib, *other_libs = _build.build_all([K.SOURCE, FK.SOURCE,
                                          FK.WGMMA_SOURCE, FK.BWD_SOURCE,
                                          FK.BWD_WGMMA_SOURCE, DK.SOURCE,
                                          SK.SOURCE, FK.TF32_SOURCE,
-                                         FK.BWD_TF32_SOURCE])
+                                         FK.BWD_TF32_SOURCE, AK.SOURCE])
     (_, wgmma_lib, _, bwd_lib, decode_lib, scan_lib, tf32_lib,
-     bwd_tf32_lib) = other_libs
+     bwd_tf32_lib, _) = other_libs
     print(f"[setup] built {lib.relative_to(ROOT)}, "
           + ", ".join(str(x.relative_to(ROOT)) for x in other_libs)
           + f" in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
@@ -4716,7 +4885,7 @@ def main() -> int:
     try:
         fleet_plane_phase(dev, serve7, serve14, smi)      # phase 15
         lap(15)
-        flash_train, bwd_row = train_phase(dev, smi)      # phase 16
+        flash_train, bwd_row, adamw_row = train_phase(dev, smi)  # 16
         lap(16)
         attn_rows[0].update(flash_train)
         attn_rows.insert(1, bwd_row)
@@ -4740,7 +4909,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/closed_loop/kernel.py:59",
         "launches": launches, "max_abs_err": max_err, "ms": kern_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}] + attn_rows + [scan_row]}))
+        "library_ms": None}] + attn_rows + [scan_row, adamw_row]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
